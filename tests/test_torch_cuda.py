@@ -1,0 +1,152 @@
+"""The CUDA strip sweeps (tpusph_torch/csrc/strip_sweeps.cu) against their
+plain PyTorch versions, on the card, for every physics branch the kernels
+carry: Tait / Morris / ideal gas / LJ, continuity, heat conduction with and
+without T_sat pinning, CSF, the virial, rhosum in both forms, all four
+smoothing kernels, 2D and 3D, periodic and not.
+
+Needs an NVIDIA GPU and nvcc (marker ``cuda``); elsewhere every test skips.
+tests/conftest.py imports jax, which this file does not need, so on a
+machine without jax run it without the conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Tolerance, per output row: the largest difference over the alive slots
+within 2e-5 (rho) or 2e-4 (cgrad, force) of the row's largest magnitude —
+the same float32 sums in another order.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tpusph_torch import kernels
+from tpusph_torch.ops import strip_pair
+from tpusph_torch.ops.band_pair import pack_fields
+from tpusph_torch.ops.pallas_pair import (
+    OCGX, OCGY, ODE, ODRHO, OFX, OFY, OFZ, ORHO, RCGX, RCGZ, RRHO)
+from tpusph_torch.params import PairTables, PhysicsSpec
+from tpusph_torch.state import Box, state_from_arrays
+
+pytestmark = pytest.mark.cuda
+
+RTOL = {"rho": 2e-5, "cgrad": 2e-4, "force": 2e-4}
+ROWS = {"rho": (ORHO,), "cgrad": (OCGX, OCGY, ODE),
+        "force": (OFX, OFY, OFZ, ODRHO, ODE, ORHO)}
+
+SPECS = {
+    "bench": dict(kernel=kernels.LUCY, rhosum_every=1, rhosum_nd=True,
+                  tait=True, heatconduction=True, surface_tension=True),
+    "morris_virial": dict(kernel=kernels.LUCY, morris=True, virial=True),
+    "idealgas_cubic": dict(kernel=kernels.CUBIC_SPLINE, ideal_gas=True,
+                           rhosum_every=1),
+    "lj_quintic": dict(kernel=kernels.QUINTIC_SPLINE, lj=True),
+    "heatpc_wendland_st": dict(kernel=kernels.WENDLAND_C2, tait=True,
+                               heat_phasechange=True, surface_tension=True,
+                               rhosum_every=1, virial=True),
+}
+
+
+@pytest.fixture(scope="module")
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def lattice(dim, nside, periodic, seed, device, dx=0.5):
+    """A jittered two-type lattice with random v, rho, e (the JAX tests'
+    lattice_system, built here with numpy alone)."""
+    rng = np.random.default_rng(seed)
+    ax = [np.arange(nside) * dx] * dim
+    pts = np.stack(np.meshgrid(*ax, indexing="ij"), -1).reshape(-1, dim)
+    if dim == 2:
+        pts = np.concatenate([pts, np.zeros((len(pts), 1))], axis=1)
+    pts = pts + rng.uniform(-0.1 * dx, 0.1 * dx, pts.shape)
+    if dim == 2:
+        pts[:, 2] = 0.0
+    n = len(pts)
+    v = rng.normal(0, 0.1, (n, 3)).astype(np.float32)
+    if dim == 2:
+        v[:, 2] = 0.0
+    st = state_from_arrays(
+        pts.astype(np.float32), rng.integers(1, 3, n), np.full(n, 0.1), v=v,
+        rho=rng.uniform(0.9, 1.2, n), e=rng.uniform(0.5, 1.5, n),
+        capacity=((n + 127) // 128) * 128, device=device)
+    L = nside * dx
+    box = Box.create([0, 0, 0], [L, L, L if dim == 3 else 1.0],
+                     (periodic, periodic, periodic and dim == 3),
+                     device=device)
+    tables = PairTables.zeros(2)
+    h = 2.2 * dx
+    for i, j in ((1, 2), (1, 1), (2, 2)):
+        tables.set_taitwater(i, j, rho0=1.0, c0=6.0, viscosity=0.4, h=h)
+        tables.set_rhosum(i, j, h=h)
+        tables.set_heatconduction(i, j, d=0.15, h=0.9 * h)
+    tables.set_heatconduction(1, 2, d=0.15, h=0.9 * h, tsat=1.1)
+    tables.set_surfacetension(1, 2, sigma=0.8, h=h)
+    return st, box, tables
+
+
+@pytest.mark.parametrize("name,dim,periodic", [
+    ("bench", 3, True), ("bench", 3, False), ("morris_virial", 3, True),
+    ("idealgas_cubic", 3, True), ("lj_quintic", 3, False),
+    ("heatpc_wendland_st", 3, True), ("bench", 2, True),
+    ("heatpc_wendland_st", 2, False),
+])
+def test_kernels_match_plain_versions(device, name, dim, periodic):
+    st, box, tables = lattice(dim, 12 if dim == 3 else 40, periodic,
+                              seed=dim + 7, device=device)
+    x = st.x[st.alive].cpu().numpy()
+    geom = strip_pair.choose_strip_geometry(box, tables.max_cut(), dim, 0.2,
+                                            x=x)
+    assert geom is not None
+    backend = strip_pair.StripBackend(geom, ntypes=2, device=device)
+    st, aux = backend.init_aux(st, box)
+    assert int(aux.overflow.sum()) == 0
+    spec = PhysicsSpec(dim=dim, **SPECS[name])
+    tabs = tables.stacked(device)
+    fld = pack_fields(st, aux.mix)
+    alive = st.alive
+    for sweep in ("rho", "cgrad", "force"):
+        kern = strip_pair.SWEEPS[sweep]
+        n0 = kern.launches
+        out_k = kern(fld, tabs, backend.win, aux.delta, geom, spec)
+        torch.cuda.synchronize()
+        assert kern.launches == n0 + 1
+        out_p = strip_pair.plain_sweep(sweep, fld, tabs, backend.win,
+                                       aux.delta, geom, spec)
+        for r in ROWS[sweep]:
+            a, b = out_k[r][alive], out_p[r][alive]
+            assert torch.isfinite(a).all(), (sweep, r)
+            err = float((a - b).abs().max())
+            scale = float(b.abs().max())
+            assert err <= RTOL[sweep] * scale, (sweep, r, err, scale)
+        # feed the next sweep as the force stage does
+        if sweep == "rho":
+            total = out_p[ORHO] * st.rmass if spec.rhosum_nd else out_p[ORHO]
+            fld[RRHO] = torch.where(alive, total, fld[RRHO])
+        elif sweep == "cgrad":
+            cg = torch.stack([out_p[OCGX], out_p[OCGY], out_p[ODE]])
+            fld[RCGX:RCGZ + 1] = torch.where(alive, cg, 0.0)
+
+
+def test_force_stage_on_card_matches_cpu(device):
+    """One force stage of the bench spec through the wrappers: the kernels
+    on the card against the plain versions on the CPU."""
+    outs = {}
+    for dev in (device, torch.device("cpu")):
+        st, box, tables = lattice(3, 12, True, seed=3, device=dev)
+        x = st.x[st.alive].cpu().numpy()
+        geom = strip_pair.choose_strip_geometry(box, tables.max_cut(), 3,
+                                                0.2, x=x)
+        backend = strip_pair.StripBackend(geom, ntypes=2, device=dev)
+        st, aux = backend.init_aux(st, box)
+        spec = PhysicsSpec(dim=3, **SPECS["bench"])
+        outs[dev.type] = backend.force_stage(st, tables.stacked(dev), spec,
+                                             aux, istep=0)
+    for field, rtol in (("rho", 2e-5), ("f", 2e-4), ("drho", 2e-4),
+                        ("de", 2e-4)):
+        a = getattr(outs["cpu"], field)
+        b = getattr(outs["cuda"], field).cpu()
+        err = float((a - b).abs().max())
+        assert err <= rtol * float(a.abs().max()), (field, err)

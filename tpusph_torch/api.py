@@ -1,0 +1,432 @@
+"""Python-first user API — the subset of ``tpusph/api.py`` that the bench
+configuration drives (``tpusph/bench.py::build_bench_sim``).
+
+``Simulation`` owns the config, the particle state on one explicit torch
+``device``, and the step loop. Particle setup is staged host-side in numpy;
+``run`` builds the device state, chooses the strip geometry from the
+measured particle distribution, and steps.
+
+Ported: create_box, add_particles, the pair_* styles of the bench
+(rhosum, taitwater, heatconduction, surfacetension), tables, thermo, run
+(with the first-violation geometry re-choice), get, natoms. Not ported
+yet (ROADMAP): the cellgrid/band/column backends, margin decay and the
+strip retry, phase change, the script layer, dumps and restarts.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from tpusph_torch.io.thermo import ThermoWriter
+from tpusph_torch.ops.pallas_pair import TABLES_1D, TABLES_2D
+from tpusph_torch.ops.strip_pair import StripBackend, choose_strip_geometry
+from tpusph_torch.params import PairTables, PhysicsSpec
+from tpusph_torch.runner import Runner, thermo_scalars
+from tpusph_torch.state import (
+    Box, ParticleState, state_from_arrays, state_to_numpy,
+)
+
+_FALLBACK_ITEM = ("the fallback backends (ROADMAP Queue 1 item 11: cellgrid, "
+                  "then band/column kernels, Queue 2 items 5-6)")
+
+
+class CapacityOverflow(RuntimeError):
+    """A rebuild counted dropped rows or a rank window that no longer
+    covers cutoff+skin (the 'dangerous builds' analog, SURVEY §5.2)."""
+
+
+def _round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+def _growth_bucket(natoms: int, prev: int) -> int:
+    """Geometry cache-key bucket for the particle count: reuse the previous
+    bucket while the count stays within [-20%, +25%] of it."""
+    if prev and 0.8 * prev <= natoms <= 1.25 * prev:
+        return prev
+    return natoms
+
+
+class Simulation:
+    """One simulation: box + particles + physics + run loop."""
+
+    def __init__(self, dim: int = 3, log: Optional[str] = None,
+                 screen: bool = True, device=None):
+        if device is None:
+            device = "cuda" if torch.cuda.is_available() else "cpu"
+        self.device = torch.device(device)
+        self.spec = PhysicsSpec(dim=dim)
+        self.tables: Optional[PairTables] = None
+        self.box: Optional[Box] = None
+        self.state: Optional[ParticleState] = None
+        self.aux = None
+        self.dt: float = 0.005
+        self.step_count: int = 0
+        self.time_acc: float = 0.0
+        self.neighbor_skin: Optional[float] = None  # `neighbor <skin> bin`
+        self.reneigh_every: int = 0     # `neigh_modify every N` (0 = check)
+        self.log_path = log
+        self.screen = screen
+        self._staged: Dict[str, np.ndarray] = {}
+        self._next_tag = 1
+        self.thermo_every: int = 0
+        self.thermo_columns: List[str] = ["step", "time", "ke"]
+        self._thermo: Optional[ThermoWriter] = None
+        self._runner: Optional[Runner] = None
+        self._runner_key = None
+        self._backend_cache: Dict = {}
+        # strip geometry state: the chooser's inputs and the violation
+        # re-choice's escalation (run)
+        self._strip_geom = None
+        self._strip_geom_key = None
+        self._strip_drift = 1.0
+        self._strip_extra = (0, 0)
+        self._strip_violations = 0
+        self._margin_short = (0, 0)
+        self._last_cb_step = 0
+
+    # ------------------------------------------------------------------ setup
+
+    def create_box(self, lo, hi, periodic=(True, True, True), ntypes: int = 1):
+        self.box = Box.create(lo, hi, periodic, device=self.device)
+        self.tables = PairTables.zeros(ntypes)
+
+    def add_particles(self, x: np.ndarray, type, v=None, rho=1.0, e=0.0,
+                      cv=1.0, rmass=1.0) -> np.ndarray:
+        """Stage particles (create_atoms / read_data path). Returns the mask
+        (over the staged arrays) of the newly added particles."""
+        x = np.atleast_2d(np.asarray(x, np.float32))
+        if x.shape[1] == 2:
+            x = np.concatenate([x, np.zeros((len(x), 1), np.float32)], axis=1)
+        n = len(x)
+
+        def full(val, shape=()):
+            a = np.asarray(val, np.float32)
+            return np.broadcast_to(a, (n,) + shape).copy() \
+                if a.ndim <= len(shape) else a.astype(np.float32)
+
+        new = dict(
+            x=x, v=full(v if v is not None else 0.0, (3,)),
+            type=np.broadcast_to(np.asarray(type, np.int32), (n,)).copy(),
+            rho=full(rho), e=full(e), cv=full(cv), rmass=full(rmass),
+            tag=np.arange(self._next_tag, self._next_tag + n, dtype=np.int32),
+            mobile=np.ones(n, bool))
+        self._next_tag += n
+        if not self._staged:
+            self._staged = new
+        else:
+            self._staged = {k: np.concatenate([self._staged[k], new[k]])
+                            for k in new}
+        mask = np.zeros(len(self._staged["x"]), bool)
+        mask[len(self._staged["x"]) - n:] = True
+        return mask
+
+    # pair styles --------------------------------------------------------
+
+    def pair_taitwater(self, morris: bool = False):
+        self.spec = dataclasses.replace(self.spec, tait=not morris,
+                                        morris=morris)
+
+    def pair_rhosum(self, every: int = 1, number_density: bool = False):
+        """sph/rhosum N, or the multiphase number-density form
+        (sph/rhosum/multiphase: rho_i = m_i sum_j W)."""
+        self.spec = dataclasses.replace(self.spec, rhosum_every=every,
+                                        rhosum_nd=bool(number_density))
+
+    def pair_heatconduction(self):
+        self.spec = dataclasses.replace(self.spec, heatconduction=True)
+
+    def pair_surfacetension(self):
+        self.spec = dataclasses.replace(self.spec, surface_tension=True)
+
+    def thermo(self, every: int):
+        self.thermo_every = every
+
+    # ------------------------------------------------------------- state sync
+
+    def _build_state(self):
+        s = self._staged
+        n = len(s["x"])
+        extras = {k: s[k] for k in ("vest", "f", "de", "drho", "rho_c",
+                                    "e_c") if k in s and len(s[k]) == n}
+        self.state = state_from_arrays(
+            s["x"], s["type"], rmass=s["rmass"], v=s["v"], rho=s["rho"],
+            e=s["e"], cv=s["cv"], tag=s["tag"], mobile=s["mobile"],
+            capacity=_round_up(n, 128), device=self.device, **extras)
+
+    def _pull_state(self):
+        """Sync the device state back into the staged host arrays (staged
+        order by tag), including the integrator fields a geometry re-choice
+        needs to continue the leapfrog exactly."""
+        if self.state is None or not self._staged:
+            return
+        dev = state_to_numpy(self.state)
+        alive = (dev["type"] > 0) & dev["owned"]
+        idx = np.nonzero(alive)[0]
+        tags = dev["tag"][idx]
+        order = np.argsort(tags, kind="stable")
+        pos = np.searchsorted(tags[order], self._staged["tag"])
+        ok = (pos < len(tags)) & (tags[order][np.clip(pos, 0, len(tags) - 1)]
+                                  == self._staged["tag"])
+        if len(idx) == len(self._staged["x"]) and ok.all():
+            sel = idx[order[pos]]
+        else:
+            sel = idx
+            self._staged["tag"] = tags
+        for k in ("x", "v", "rho", "e", "cv", "rmass", "type", "mobile",
+                  "vest", "f", "de", "drho", "rho_c", "e_c"):
+            self._staged[k] = dev[k][sel]
+
+    # ------------------------------------------------------------------- run
+
+    def _select_strip_backend(self) -> StripBackend:
+        """The strip backend for the current particle distribution. The
+        port has no other backend: a configuration that cannot strip
+        raises."""
+        if self.tables.ntypes > 6:
+            raise NotImplementedError(
+                f"{self.tables.ntypes} particle types: the strip backend "
+                f"takes at most 6; the others are {_FALLBACK_ITEM}")
+        cutoff = self.tables.max_cut()
+        skin = self.neighbor_skin if self.neighbor_skin is not None \
+            else 0.3 * cutoff
+        prev = self._strip_geom_key[3] if self._strip_geom_key else 0
+        gkey = ("strip", cutoff, skin, _growth_bucket(self.natoms, prev),
+                self.spec.dim, self._strip_drift, self._strip_extra)
+        if self._strip_geom_key != gkey:
+            if self.state is not None:
+                self._pull_state()
+            self._strip_geom_key = gkey
+            self._strip_geom = choose_strip_geometry(
+                self.box, cutoff, self.spec.dim, skin,
+                x=np.asarray(self._staged["x"]), drift=self._strip_drift,
+                extra_rows=self._strip_extra)
+        geom = self._strip_geom
+        if geom is None:
+            raise NotImplementedError(
+                "the strip geometry chooser found no layout for this box "
+                f"and particle distribution; the others are {_FALLBACK_ITEM}")
+        key = (geom, self.reneigh_every)
+        if self._backend_cache.get("key") != key:
+            self._backend_cache = dict(key=key, backend=StripBackend(
+                geom, ntypes=self.tables.ntypes,
+                rebuild_every=self.reneigh_every, device=self.device))
+            self.aux = None
+        return self._backend_cache["backend"]
+
+    def _derive_perf_flags(self):
+        """Static perf flags from the concrete tables: tables uniform over
+        the real types fold to scalars, and one shared active cutoff."""
+        t = self.tables
+        nt = t.ntypes
+        scalar = []
+        for name in TABLES_2D + TABLES_1D:
+            arr = getattr(t, name)
+            sub = arr[1:nt + 1, 1:nt + 1] if arr.ndim == 2 else arr[1:nt + 1]
+            if sub.size and np.all(sub == sub.flat[0]):
+                scalar.append(name)
+        spec = self.spec
+        active = []
+        if spec.tait or spec.morris or spec.ideal_gas or spec.lj:
+            active.append("cut")
+        if spec.heatconduction or spec.heat_phasechange:
+            active.append("cut_heat")
+        if spec.surface_tension:
+            active.append("cut_tension")
+        shared = (len(active) > 0 and all(c in scalar for c in active)
+                  and len({float(getattr(t, c)[1, 1]) for c in active}) == 1)
+        self.spec = dataclasses.replace(spec, scalar_tables=tuple(sorted(
+            scalar)), shared_wfd=bool(shared))
+
+    def _ensure_runner(self) -> Runner:
+        self._derive_perf_flags()
+        backend = self._select_strip_backend()
+        key = (self.spec, self.box.periodic, id(backend))
+        if self._runner is None or self._runner_key != key:
+            self._runner = Runner(self.spec, self.box, backend)
+            self._runner_key = key
+        return self._runner
+
+    def _thermo_values(self, state: ParticleState, istep: int):
+        sc = thermo_scalars(state)
+        vals = {}
+        for c in self.thermo_columns:
+            if c == "step":
+                vals[c] = istep
+            elif c == "time":
+                vals[c] = self.time_acc + (istep - self.step_count) * self.dt
+            elif c == "ke":
+                vals[c] = sc["ke"]
+            else:
+                raise ValueError(f"unknown thermo column '{c}'")
+        return vals
+
+    def _ensure_thermo(self) -> ThermoWriter:
+        if self._thermo is None:
+            self._thermo = ThermoWriter(self.thermo_columns,
+                                        screen=self.screen,
+                                        log_path=self.log_path)
+        return self._thermo
+
+    def run(self, nsteps: int):
+        """Run nsteps. If a rebuild counts a coverage overflow (the margins
+        chosen from the initial distribution no longer fit the evolved
+        density field), re-choose the geometry from the CURRENT state and
+        continue: steps completed before the abort are kept, and the
+        re-chosen margins take the measured shortfall as an absolute
+        floor (the reference's first-violation path)."""
+        attempts = 0
+        remaining = nsteps
+        pre = True
+        while True:
+            try:
+                return self._run_once(remaining, pre=pre)
+            except CapacityOverflow:
+                if attempts >= 2:
+                    raise
+                self._strip_violations += 1
+                short = self._margin_short
+                if short[0] > 0 or short[1] > 0:
+                    g = self._strip_geom
+                    base = (g.mlo * g.ch, g.mhi * g.ch)
+                    prev = self._strip_extra
+                    self._strip_extra = (
+                        max(prev[0], base[0] + short[0] + 4),
+                        max(prev[1], base[1] + short[1] + 4))
+                elif self._strip_violations > 1:
+                    # no measured window shortfall (a column or seam band
+                    # overflowed): escalate the drift allowance
+                    self._strip_drift = min(self._strip_drift * 2.0, 8.0)
+                self._margin_short = (0, 0)
+                done = self._continue_after_abort()
+                # abort only on consecutive zero-progress re-chooses
+                attempts = 1 if done > 0 else attempts + 1
+                remaining -= done
+                # the continuation keeps the leapfrog half-step context:
+                # no Verlet::setup force recompute (`run pre no`)
+                pre = False
+                if remaining <= 0:
+                    return self
+
+    def _continue_after_abort(self) -> int:
+        """Credit the executed steps, pull the state to the host and drop
+        every geometry-derived cache so the next run re-measures. Returns
+        the executed-step count."""
+        start = self.step_count
+        done = max(self._last_cb_step - start, 0)
+        done = min(done, self._runner.ok_steps)
+        self.time_acc += done * self.dt
+        self.step_count += done
+        self._pull_state()
+        self._strip_geom_key = None
+        self._backend_cache = {}
+        self._runner = None
+        self._runner_key = None
+        self.state = None
+        self.aux = None
+        return done
+
+    def _restore_integrator_fields(self):
+        """Put the staged f/de/drho back into the re-sorted pool rows by tag
+        (the rebuild zeroes them): the first initial_integrate after a
+        re-choice must see the same de it would have seen uninterrupted."""
+        s = self._staged
+        if "de" not in s or self.state is None:
+            return
+        dev = state_to_numpy(self.state)
+        alive = (dev["type"] > 0) & dev["owned"]
+        idx = np.nonzero(alive)[0]
+        tags = dev["tag"][idx]
+        order = np.argsort(s["tag"], kind="stable")
+        sorted_tags = s["tag"][order]
+        pos = np.searchsorted(sorted_tags, tags)
+        pos_c = np.clip(pos, 0, len(sorted_tags) - 1)
+        ok = (pos < len(sorted_tags)) & (sorted_tags[pos_c] == tags)
+        src = order[pos_c]
+        upd = {}
+        for k in ("f", "de", "drho"):
+            arr = dev[k].copy()
+            arr[idx[ok]] = np.asarray(s[k])[src[ok]]
+            upd[k] = torch.as_tensor(arr, device=self.device)
+        self.state = dataclasses.replace(self.state, **upd)
+
+    def _run_once(self, nsteps: int, pre: bool = True):
+        runner = self._ensure_runner()
+        if self.state is None:
+            self._build_state()
+            self.aux = None
+        if self.aux is None:
+            # initial sort + strip build (Verlet::setup's Neighbor::build)
+            self.state, self.aux = runner.backend.init_aux(self.state,
+                                                           self.box)
+            if not pre:
+                self._restore_integrator_fields()
+        tabs = self.tables.stacked(self.device)
+        tw = self._ensure_thermo() if self.thermo_every or nsteps else None
+        if pre:
+            self.state = runner.setup(self.state, tabs, self.step_count,
+                                      self.aux)
+        start = self.step_count
+        last = start + nsteps
+        every = self.thermo_every if self.thermo_every > 0 else nsteps
+
+        def callback(state, istep, aux):
+            self.state = state
+            self.aux = aux
+            self._last_cb_step = istep
+            self._check_overflow()
+            if tw is not None and (istep % max(self.thermo_every, 1) == 0
+                                   or istep in (start, last)):
+                tw.write_line(self._thermo_values(state, istep))
+
+        if tw is not None:
+            tw.write_header()
+        callback(self.state, start, self.aux)
+        t0 = runner.loop_time
+        self.state, self.aux = runner.run(
+            self.state, tabs, self.dt, nsteps, self.aux, istep0=start,
+            every=every, callback=callback)
+        loop_time = runner.loop_time - t0
+        if tw is not None and (self.screen or self.log_path):
+            tw.write_loop_summary(loop_time, 1, nsteps, self.natoms)
+        self.time_acc += nsteps * self.dt
+        self.step_count += nsteps
+        return self
+
+    def _check_overflow(self):
+        """Fixed-capacity overflow guard: dropped rows or an uncovered
+        window mean silently dropped interactions — raise, with the
+        measured shortfall kept for the re-choice."""
+        ov = int(self.aux.overflow.sum())
+        if ov > 0:
+            ms = self.aux.margin_short.cpu().numpy()
+            self._margin_short = (int(ms[0]), int(ms[1]))
+            raise CapacityOverflow(
+                f"strip capacity overflow ({ov} rows dropped from pair "
+                "windows or coverage violations)")
+
+    # ------------------------------------------------------------- accessors
+
+    def get(self, field: str) -> np.ndarray:
+        """Per-particle array of the alive owned particles, in tag order
+        (lammps_extract_atom)."""
+        if self.state is None:
+            self._build_state()
+        dev = state_to_numpy(self.state)
+        alive = (dev["type"] > 0) & dev["owned"]
+        order = np.argsort(dev["tag"][alive], kind="stable")
+        if field == "t":
+            arr = dev["e"] / np.where(dev["cv"] > 0, dev["cv"], 1.0)
+        else:
+            arr = dev[field]
+        return np.asarray(arr)[alive][order]
+
+    @property
+    def natoms(self) -> int:
+        if self.state is None:
+            return len(self._staged.get("x", ()))
+        return self.state.nlocal()
