@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the torch port (tpusph_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # the 1M-particle bench, as checked in CI
+    python3 chip_smoke.py            # the 1M-particle benches
 
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. device  — a CUDA device must exist; prints nvidia-smi's name and
@@ -12,15 +12,32 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                its CUDA kernel and its plain PyTorch version, checks the
                largest difference of each output row against a stated
                tolerance, and times both with CUDA events.
-  4. main    — resets the kernels' launch counts, runs the bench
+  4. dynamic — resets the kernels' launch counts, runs the `dynamic` bench
                (tpusph_torch.bench.run_bench: Simulation.run with warmup and
-               timed windows), reads the counts, and checks every kernel
-               was launched, no overflow, all fields finite, owned mass
+               timed windows), reads the counts, and checks every sweep was
+               launched, no overflow, all fields finite, owned mass
                conserved and the momentum drift bounded.
-  5. slice   — the 16^3 bench slice for 20 steps on the GPU (kernels) and
-               on the CPU (plain versions): the results must agree.
-Prints one JSON line of the kernels, the bench JSON line, and as the last
-line {"ok": true, "device": {...}}.
+  5. kernels — phase 3 again on the layout the next step after the main
+               path would sweep (the re-chosen window W).
+  6. kernels — on the bench `boiling` state after the initial strip build
+               (column headroom 1.35, the T_sat-pinned heat branch), the
+               three sweeps as in phase 3 and the vapor sweep's kernel
+               against its plain version: count, both slots and both rsq
+               equal on every alive row.
+  7. boiling — resets the counts, runs the `boiling` bench (fix
+               phase_change), and checks all four kernels were launched,
+               particles were inserted and the vapour count grew by as
+               many, the owned mass and momentum ledgers, the liquid's
+               mass debit, no overflow and finite fields.
+  8. kernels — phase 6 again on the layout after the boiling path
+               (re-chosen W, inserted particles rebuilt into columns).
+  9. slices  — the 16^3 `dynamic` bench slice for 20 steps, and a 12^3
+               vapour bubble with fix phase_change (prob 1) for 20 steps,
+               each on the GPU (kernels) and on the CPU (plain versions):
+               the results must agree.
+Prints the two bench JSON lines, one JSON line of the kernels (launches on
+the boiling path; times and bounds from phase 8, the largest error of all
+comparisons), and as the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -33,10 +50,34 @@ import time
 # tolerance of a kernel output row against its plain version: largest
 # absolute difference over the largest magnitude of the plain row (sums in
 # another order, float32; the physics is held to 2e-4 elsewhere, rho to
-# 2e-5)
-KERNEL_RTOL = {"rho": 2e-5, "cgrad": 2e-4, "force": 2e-4}
+# 2e-5). The vapor sweep forms rsq in the plain version's order with
+# round-to-nearest intrinsics: it must agree exactly.
+KERNEL_RTOL = {"rho": 2e-5, "cgrad": 2e-4, "force": 2e-4, "vapor": 0.0}
 SOURCE = "tpusph_torch/csrc/strip_sweeps.cu"
-REPLACES = "tpusph/ops/strip_pair.py:1106"
+REPLACES = {"rho": "tpusph/ops/strip_pair.py:1106",
+            "cgrad": "tpusph/ops/strip_pair.py:1106",
+            "force": "tpusph/ops/strip_pair.py:1106",
+            "vapor": "tpusph/ops/strip_pair.py:1251"}
+KERNELS = ("rho", "cgrad", "force", "vapor")
+
+# the least time the card could take: the larger of the bytes moved over
+# 3.35 TB/s and the float32 operations over 67 TFLOP/s (no tensor cores)
+# of one NVIDIA H100 SXM at 700 W
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# field rows each sweep reads and output rows it writes (one float32 per
+# owned alive particle each, read or written once)
+ROWS_IN = {"rho": 5, "cgrad": 7, "force": 15, "vapor": 5}
+ROWS_OUT = {"rho": 1, "cgrad": 3, "force": 6, "vapor": 5}
+# float32 operations (add, multiply, compare, divide, sqrt: one each) per
+# live (i, j) pair that the bench physics needs, counted from the kernels'
+# arithmetic: rsq with the image shift 10 + sqrt; rho adds Lucy W and the
+# sum; cgrad the Lucy gradient, the colour coefficient and three sums;
+# force Tait + Monaghan viscosity, continuity and heat conduction (50), and
+# the capillary terms on pairs of tiles flagged mixed (25 more); vapor rsq,
+# two compares, the count and the two running minima
+PAIR_OPS = {"rho": 22, "cgrad": 30, "force": 50, "force_st": 25,
+            "vapor": 16}
 
 
 def cuda_ms(fn, reps):
@@ -52,27 +93,101 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def phase_kernels(sim, reps=10):
-    """Kernel vs plain version of each sweep on the state after init_aux,
-    fed as the force stage feeds them (rho patched before cgrad, cg before
-    force)."""
+def live_pairs(fld, win, delta, geom, cut2, own, keep=None):
+    """(i, j) pairs with 1e-12 < rsq < cut2 in the sweeps' windows whose i
+    is an owned alive row: the pairs the function needs on these inputs,
+    not the nnbr*W candidates, nor the pairs of seam-ghost rows, whose
+    sums are discarded. ``keep(pi, pj)`` filters them further."""
+    from tpusph_torch.ops import strip_pair
+    cstep = max(1, strip_pair._PLAIN_CHUNK * strip_pair._GROUP
+                // (geom.col_cap * geom.nnbr * geom.w))
+    total = 0
+    for c0 in range(0, geom.ncols, cstep):
+        pi, pj, *_ = strip_pair._window_pairs(
+            fld, win, delta, geom, c0, min(c0 + cstep, geom.ncols), cut2)
+        need = own[pi] if keep is None else own[pi] & keep(pi, pj)
+        total += int(need.sum())
+    return total
+
+
+def bound(name, n_rows, ops):
+    """(bound_ms, bound_by) of one launch over ``n_rows`` owned alive
+    particles (each input row read once, each output row written once; the
+    slot layout's dead padding and seam-ghost copies are not the
+    function's) doing ``ops`` float32 operations."""
+    nbytes = 4 * n_rows * (ROWS_IN[name] + ROWS_OUT[name])
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def strip_state(sim, after_run):
+    """(backend, state, aux, tables) of the strip layout the sweeps see:
+    after the initial sort and build (``after_run`` False), or, after a
+    main path, the state its next step's force stage would get (the
+    rebuild trigger, a rebuild where it fires — over the slots inserted by
+    a last-step phase-change firing too — and the seam refresh)."""
+    if after_run:
+        backend = sim._runner.backend
+        state, aux, _ = backend.prepare(sim.state, sim.aux, sim.step_count,
+                                        sim.box)
+    else:
+        backend = sim._ensure_runner().backend
+        sim._build_state()
+        state, aux = backend.init_aux(sim.state, sim.box)
+    return backend, state, aux, sim.tables.stacked(sim.device)
+
+
+def timed(name, run_kernel, run_plain, n_rows, ops, reps):
+    """Kernel and plain times by CUDA events and the bound, printed."""
+    ms = cuda_ms(run_kernel, reps)
+    plain_ms = cuda_ms(run_plain, 1)
+    bound_ms, bound_by = bound(name, n_rows, ops)
+    print(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}), roofline share "
+          f"{bound_ms / ms:.2%}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def hold_to_plain(sim, names, after_run=False, reps=10):
+    """Each kernel of ``names`` against its plain version on the state of
+    ``strip_state``, fed as the main path feeds them (the three sweeps as
+    the force stage does: rho patched before cgrad, cg before force; the
+    vapor sweep as the phase-change query does, with vtype and the cutoff
+    of the simulation's config). Returns {name: report}."""
     import torch
     from tpusph_torch.ops import strip_pair
     from tpusph_torch.ops.band_pair import pack_fields
     from tpusph_torch.ops.pallas_pair import (
-        OCGX, OCGY, ODE, ODRHO, OFX, OFY, OFZ, ORHO, RCGX, RCGZ, RRHO)
+        OCGX, OCGY, ODE, ODRHO, OFX, OFY, OFZ, ORHO, RCGX, RCGZ, RMIX, RRHO)
 
-    backend = sim._ensure_runner().backend
+    backend, state, aux, tabs = strip_state(sim, after_run)
     geom, spec = backend.geom, sim.spec
-    sim._build_state()
-    state, aux = backend.init_aux(sim.state, sim.box)
-    tabs = sim.tables.stacked(sim.device)
+    alive = state.alive
+    own = alive & state.owned
+    n_own = int(own.sum())
+    print(f"  geometry W {geom.w}, {geom.n_slots} slots, {int(alive.sum())} "
+          f"alive rows of which {n_own} owned particles")
+    report = {}
+    sweeps = [s for s in names if s != "vapor"]
     fld = pack_fields(state, aux.mix)
+    if sweeps:
+        cut2 = tabs.cutmax2["force"]
+        npairs = live_pairs(fld, backend.win, aux.delta, geom, cut2, own)
+        mixed = {th: live_pairs(fld, backend.win, aux.delta, geom, cut2, own,
+                                keep=lambda pi, pj, th=th: fld[RMIX][pi] > th)
+                 for th in (0.25, 0.75)}
+        ops = {"rho": PAIR_OPS["rho"] * npairs,
+               "cgrad": PAIR_OPS["cgrad"] * mixed[0.75],
+               "force": PAIR_OPS["force"] * npairs
+               + PAIR_OPS["force_st"] * mixed[0.25]}
+        print(f"  live pairs {npairs} ({npairs / n_own:.1f} per particle), "
+              f"in tiles flagged > 0.25: {mixed[0.25]}, > 0.75: "
+              f"{mixed[0.75]}")
     rows = {"rho": (ORHO,), "cgrad": (OCGX, OCGY, ODE),
             "force": (OFX, OFY, OFZ, ODRHO, ODE)}
-    alive = state.alive
-    report = {}
-    for sweep in ("rho", "cgrad", "force"):
+    for sweep in sweeps:
         kern = strip_pair.SWEEPS[sweep]
 
         def run_kernel():
@@ -96,10 +211,8 @@ def phase_kernels(sim, reps=10):
                   f"{scale:.3e} rel {err / max(scale, 1e-30):.3e} "
                   f"(tolerance {KERNEL_RTOL[sweep]:.0e})")
             assert err <= KERNEL_RTOL[sweep] * scale, (sweep, r, err, scale)
-        ms = cuda_ms(run_kernel, reps)
-        plain_ms = cuda_ms(run_plain, 1)
-        print(f"  {sweep}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        report[sweep] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+        report[sweep] = dict(max_abs_err=max(errs), **timed(
+            sweep, run_kernel, run_plain, n_own, ops[sweep], reps))
         if sweep == "rho":
             total = out_p[ORHO] * state.rmass if spec.rhosum_nd \
                 else out_p[ORHO]
@@ -107,55 +220,141 @@ def phase_kernels(sim, reps=10):
         elif sweep == "cgrad":
             cg = torch.stack([out_p[OCGX], out_p[OCGY], out_p[ODE]])
             fld[RCGX:RCGZ + 1] = torch.where(alive, cg, 0.0)
+    if "vapor" in names:
+        report["vapor"] = vapor_to_plain(sim, backend, state, aux, own, reps)
     return report
 
 
+def vapor_to_plain(sim, backend, state, aux, own, reps):
+    """The vapor kernel vs its plain version as
+    ``StripBackend.vapor_neighbor`` calls it: every output row equal on
+    alive rows."""
+    import torch
+    from tpusph_torch.ops import strip_pair
+    from tpusph_torch.ops.band_pair import pack_fields
+    from tpusph_torch.ops.pallas_pair import (
+        OCGX, OCGY, OFX, OFY, ORHO, RSLOT, RTYPE)
+
+    cfg = sim.phase_change_config
+    geom = backend.geom
+    cut = min(cfg.cutoff, geom.margin_dist)
+    fld = pack_fields(state)
+    slot = torch.arange(geom.n_slots, dtype=torch.float32,
+                        device=sim.device)
+    fld[RSLOT] = torch.where(state.owned, slot, -slot - 1.0)
+    kern = strip_pair.vapor_sweep
+
+    def run_kernel():
+        return kern(fld, backend.win, aux.delta, geom, cfg.vapor_type, cut)
+
+    def run_plain():
+        return strip_pair.plain_vapor_sweep(fld, backend.win, aux.delta,
+                                            geom, cfg.vapor_type, cut)
+
+    out_k = run_kernel()
+    out_p = run_plain()
+    torch.cuda.synchronize()
+    alive = state.alive
+    errs = []
+    for r, what in ((ORHO, "count"), (OCGX, "nearest slot"),
+                    (OCGY, "nearest rsq"), (OFX, "nearest owned slot"),
+                    (OFY, "nearest owned rsq")):
+        a, b = out_k[r][alive], out_p[r][alive]
+        neq = int((a != b).sum())
+        errs.append(float((a - b).abs().max()))
+        print(f"  vapor {what}: {neq} of {a.numel()} alive rows differ "
+              f"(tolerance: none)")
+        assert neq == 0, (what, neq)
+    nvap = int((out_p[ORHO][alive] > 0).sum())
+    assert nvap > 0, "no row has a vapour neighbour"
+    typ = fld[RTYPE]
+    npairs = live_pairs(fld, backend.win, aux.delta, geom,
+                        strip_pair._vapor_cut2(cut), own,
+                        keep=lambda pi, pj: typ[pj] == cfg.vapor_type)
+    print(f"  {nvap} rows with a vapour neighbour, {npairs} live pairs")
+    return dict(max_abs_err=max(errs), **timed(
+        "vapor", run_kernel, run_plain, int(own.sum()),
+        PAIR_OPS["vapor"] * npairs, reps))
+
+
 def owned_totals(sim):
-    """(total owned mass, momentum vector, sum of m|v|) in float64."""
+    """(total owned mass, momentum vector, sum of m|v|, liquid mass,
+    vapour count) in float64."""
     import torch
     st = sim.state
     own = st.alive & st.owned
     m = torch.where(own, st.rmass, 0.0).double()
     p = (m[:, None] * st.v.double()).sum(0)
     return (float(m.sum()), p.cpu().numpy(),
-            float((m * st.v.double().norm(dim=1)).sum()))
+            float((m * st.v.double().norm(dim=1)).sum()),
+            float(torch.where(st.type == 1, m, 0.0).sum()),
+            int((own & (st.type == 2)).sum()))
 
 
-def phase_main(sim, steps, windows):
-    import numpy as np
-    import torch
-    from tpusph_torch.bench import run_bench
+def reset_counts():
     from tpusph_torch.ops import strip_pair
-
-    sim._build_state()
-    mass0, p0, mv0 = owned_totals(sim)
-    for k in strip_pair.SWEEPS.values():
+    for k in strip_pair.KERNELS.values():
         k.launches = 0
-    bench = run_bench(sim=sim, n_steps=steps, n_windows=windows)
-    launches = {s: k.launches for s, k in strip_pair.SWEEPS.items()}
+
+
+def read_counts(names):
+    from tpusph_torch.ops import strip_pair
+    launches = {s: strip_pair.KERNELS[s].launches for s in names}
     print(f"  launches on the main path: {launches}")
     for s, n in launches.items():
         assert n > 0, f"{s} kernel never launched on the main path"
+    return launches
+
+
+def phase_main(sim, mode, steps, windows):
+    """One bench main path, ``mode`` "dynamic" or "boiling"; returns
+    (launches, bench line)."""
+    import numpy as np
+    import torch
+    from tpusph_torch.bench import run_bench
+
+    sim._build_state()
+    mass0, p0, mv0, liq0, nvap0 = owned_totals(sim)
+    n0 = sim.natoms
+    names = KERNELS if mode == "boiling" else KERNELS[:3]
+    reset_counts()
+    bench = run_bench(sim=sim, n_steps=steps, n_windows=windows, mode=mode)
+    launches = read_counts(names)
     assert int(sim.aux.overflow.sum()) == 0, "overflow at the end"
     st = sim.state
     for name in ("x", "v", "vest", "f", "rho", "drho", "e", "de"):
         assert torch.isfinite(getattr(st, name)).all(), f"{name} not finite"
-    assert sim.natoms == bench["particles"]
-    mass1, p1, _ = owned_totals(sim)
+    assert bench["particles"] == n0
+    mass1, p1, _, liq1, nvap1 = owned_totals(sim)
     dmass = abs(mass1 - mass0) / mass0
     dp = float(np.abs(p1 - p0).max()) / mv0
     print(f"  owned mass drift {dmass:.3e} (bound 1e-6); momentum drift "
           f"{dp:.3e} of sum m|v0| (bound 1e-4)")
     assert dmass <= 1e-6, dmass
     assert dp <= 1e-4, dp
+    if mode == "boiling":
+        inserted = sim.natoms - n0
+        dm = sim.phase_change_config.dm
+        debit = liq0 - liq1
+        print(f"  insertions {inserted}, vapour particles {nvap0} -> "
+              f"{nvap1}; liquid mass debit {debit:.6f} vs dm x insertions "
+              f"{dm * inserted:.6f} (bound 1e-5 relative: float64 sums of "
+              "float32 masses, each debit rounded to float32); geometry "
+              f"re-choices {sim._strip_violations}, decays "
+              f"{sim._strip_decays}")
+        assert inserted > 0, "no insertion on the boiling path"
+        assert nvap1 - nvap0 == inserted, (nvap0, nvap1, inserted)
+        assert abs(debit - dm * inserted) <= 1e-5 * dm * inserted, debit
+        bench["insertions"] = inserted
     return launches, bench
 
 
-def phase_slice():
-    """The CPU test's slice (tests/test_torch_slice.py) on the GPU against
-    the plain versions on the CPU."""
+def phase_slices():
+    """The CPU tests' slices on the GPU against the plain versions on the
+    CPU: the 16^3 `dynamic` bench (tests/test_torch_slice.py) and the 12^3
+    boiling bubble (tests/test_torch_phase_change.py)."""
     import numpy as np
-    from tpusph_torch.bench import build_bench_sim
+    from tpusph_torch.bench import build_bench_sim, build_bubble_sim
 
     sims = {}
     for dev in ("cuda", "cpu"):
@@ -170,8 +369,49 @@ def phase_slice():
         if field == "x":
             d -= 16.0 * np.round(d / 16.0)
         err = float(np.abs(d).max())
-        print(f"  slice {field}: max |gpu - cpu| {err:.3e} (bound 5e-5)")
+        print(f"  dynamic slice {field}: max |gpu - cpu| {err:.3e} "
+              "(bound 5e-5)")
         assert err <= 5e-5, (field, err)
+
+    sims = {}
+    for dev in ("cuda", "cpu"):
+        sim = build_bubble_sim(dev)
+        n0 = sim.natoms
+        sim.run(20)
+        sims[dev] = sim
+    a, b = sims["cpu"], sims["cuda"]
+    print(f"  boiling slice: insertions gpu {b.natoms - n0}, cpu "
+          f"{a.natoms - n0}")
+    assert a.natoms == b.natoms and a.natoms > n0
+    for field in ("rmass", "e"):
+        for phase in (1, 2):
+            sa = float(a.get(field)[a.get("type") == phase].sum(
+                dtype=np.float64))
+            sb = float(b.get(field)[b.get("type") == phase].sum(
+                dtype=np.float64))
+            print(f"  boiling slice sum {field} phase {phase}: gpu {sb!r} "
+                  f"cpu {sa!r} (bound 1e-6 relative)")
+            assert abs(sb - sa) <= 1e-6 * abs(sa), (field, phase, sa, sb)
+
+    def by_tag(sim, f):
+        tag = sim.get("tag")
+        keep = tag <= n0
+        return sim.get(f)[keep][np.argsort(tag[keep])]
+
+    for f in ("x", "e", "rmass"):
+        err = float(np.abs(by_tag(b, f) - by_tag(a, f)).max())
+        print(f"  boiling slice originals {f}: max |gpu - cpu| {err:.3e} "
+              "(bound 1e-5)")
+        assert err <= 1e-5, (f, err)
+    def inserted(sim):
+        # a multiset of positions: the two runs mint tags in pool order
+        x = sim.get("x")[sim.get("tag") > n0]
+        return x[np.lexsort(np.round(x, 4).T)]
+
+    err = float(np.abs(inserted(b) - inserted(a)).max())
+    print(f"  boiling slice inserted positions: max |gpu - cpu| {err:.3e} "
+          "(bound 1e-5)")
+    assert err <= 1e-5, err
 
 
 def main() -> int:
@@ -189,39 +429,56 @@ def main() -> int:
     from tpusph_torch.bench import build_bench_sim, card_info
     from tpusph_torch.ops import cuda_build
 
-    print("[1/5] device")
+    def phase(title, fn, *a):
+        print(title)
+        t0 = time.perf_counter()
+        out = fn(*a)
+        print(f"  ({time.perf_counter() - t0:.1f} s)")
+        return out
+
+    print("[1/9] device")
     name, limit = card_info()
     print(f"{name}, {limit}")
     print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
           f"devices {torch.cuda.device_count()}")
 
-    print("[2/5] build")
-    t0 = time.perf_counter()
-    lib = cuda_build.load()
-    print(f"  built and loaded in {time.perf_counter() - t0:.1f} s")
+    lib = phase("[2/9] build", cuda_build.load)
     print(lib.ptxas_log.strip())
 
-    print(f"[3/5] kernels vs plain at {args.particles} particles")
-    t0 = time.perf_counter()
-    sim = build_bench_sim(args.particles, mode="dynamic", device="cuda")
-    report = phase_kernels(sim)
-    print(f"  ({time.perf_counter() - t0:.1f} s)")
-
-    print("[4/5] main path: tpusph_torch.bench.run_bench")
-    t0 = time.perf_counter()
-    launches, bench = phase_main(sim, args.steps, args.windows)
-    print(f"  ({time.perf_counter() - t0:.1f} s)")
-
-    print("[5/5] 16^3 slice: GPU kernels vs CPU plain versions")
-    t0 = time.perf_counter()
-    phase_slice()
-    print(f"  ({time.perf_counter() - t0:.1f} s)")
+    n = args.particles
+    sim = build_bench_sim(n, mode="dynamic", device="cuda")
+    reports = [phase(f"[3/9] dynamic: sweeps vs plain on the initial "
+                     f"layout at {n} particles", hold_to_plain, sim,
+                     KERNELS[:3])]
+    _, dynamic = phase("[4/9] dynamic main path: run_bench", phase_main,
+                       sim, "dynamic", args.steps, args.windows)
+    reports.append(phase("[5/9] dynamic: sweeps vs plain on the layout "
+                         "after the main path", hold_to_plain, sim,
+                         KERNELS[:3], True))
+    del sim
+    sim = build_bench_sim(n, mode="boiling", device="cuda")
+    reports.append(phase(f"[6/9] boiling: all four kernels vs plain on the "
+                         f"initial layout at {n} particles", hold_to_plain,
+                         sim, KERNELS))
+    launches, boiling = phase("[7/9] boiling main path: run_bench",
+                              phase_main, sim, "boiling", args.steps,
+                              args.windows)
+    # the kernels' times and bounds in the JSON line: the layout the
+    # boiling path's timed windows launch them on
+    last = phase("[8/9] boiling: all four kernels vs plain on the layout "
+                 "after the main path", hold_to_plain, sim, KERNELS, True)
+    reports.append(last)
+    del sim
+    phase("[9/9] slices: GPU kernels vs CPU plain versions", phase_slices)
 
     kernels = [dict(name=f"strip_{s}_sweep", route="cuda", source=SOURCE,
-                    replaces=REPLACES, launches=launches[s], **report[s])
-               for s in ("rho", "cgrad", "force")]
+                    replaces=REPLACES[s], launches=launches[s],
+                    library_ms=None, **{**last[s], "max_abs_err": max(
+                        r[s]["max_abs_err"] for r in reports if s in r)})
+               for s in KERNELS]
+    print(json.dumps(dynamic))
+    print(json.dumps(boiling))
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps(bench))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,7 +2,10 @@
 plain PyTorch versions, on the card, for every physics branch the kernels
 carry: Tait / Morris / ideal gas / LJ, continuity, heat conduction with and
 without T_sat pinning, CSF, the virial, rhosum in both forms, all four
-smoothing kernels, 2D and 3D, periodic and not.
+smoothing kernels, 2D and 3D, periodic and not. The vapor sweep (the fix
+phase_change interface query) is held to its plain version exactly: count,
+both slots and both rsq, on exact lattices (rsq ties) and jittered ones,
+with seam-ghost rows where the column axis is periodic.
 
 Needs an NVIDIA GPU and nvcc (marker ``cuda``); elsewhere every test skips.
 tests/conftest.py imports jax, which this file does not need, so on a
@@ -23,7 +26,7 @@ from tpusph_torch import kernels
 from tpusph_torch.ops import strip_pair
 from tpusph_torch.ops.band_pair import pack_fields
 from tpusph_torch.ops.pallas_pair import (
-    OCGX, OCGY, ODE, ODRHO, OFX, OFY, OFZ, ORHO, RCGX, RCGZ, RRHO)
+    OCGX, OCGY, ODE, ODRHO, OFX, OFY, OFZ, ORHO, RCGX, RCGZ, RRHO, RSLOT)
 from tpusph_torch.params import PairTables, PhysicsSpec
 from tpusph_torch.state import Box, state_from_arrays
 
@@ -53,15 +56,15 @@ def device():
     return torch.device("cuda")
 
 
-def lattice(dim, nside, periodic, seed, device, dx=0.5):
-    """A jittered two-type lattice with random v, rho, e (the JAX tests'
-    lattice_system, built here with numpy alone)."""
+def lattice(dim, nside, periodic, seed, device, dx=0.5, jitter=True):
+    """A jittered (or exact) two-type lattice with random v, rho, e (the
+    JAX tests' lattice_system, built here with numpy alone)."""
     rng = np.random.default_rng(seed)
     ax = [np.arange(nside) * dx] * dim
     pts = np.stack(np.meshgrid(*ax, indexing="ij"), -1).reshape(-1, dim)
     if dim == 2:
         pts = np.concatenate([pts, np.zeros((len(pts), 1))], axis=1)
-    pts = pts + rng.uniform(-0.1 * dx, 0.1 * dx, pts.shape)
+    pts = pts + rng.uniform(-0.1 * dx, 0.1 * dx, pts.shape) * jitter
     if dim == 2:
         pts[:, 2] = 0.0
     n = len(pts)
@@ -150,3 +153,35 @@ def test_force_stage_on_card_matches_cpu(device):
         b = getattr(outs["cuda"], field).cpu()
         err = float((a - b).abs().max())
         assert err <= rtol * float(a.abs().max()), (field, err)
+
+
+@pytest.mark.parametrize("dim,periodic,jitter", [
+    (3, True, True), (3, True, False), (3, False, True), (3, False, False),
+    (2, True, False), (2, False, True),
+])
+def test_vapor_kernel_matches_plain_exactly(device, dim, periodic, jitter):
+    st, box, tables = lattice(dim, 12 if dim == 3 else 40, periodic,
+                              seed=dim + 11, device=device, jitter=jitter)
+    x = st.x[st.alive].cpu().numpy()
+    geom = strip_pair.choose_strip_geometry(box, tables.max_cut(), dim, 0.2,
+                                            x=x)
+    backend = strip_pair.StripBackend(geom, ntypes=2, device=device)
+    st, aux = backend.init_aux(st, box)
+    assert int(aux.overflow.sum()) == 0
+    if periodic:
+        assert bool((st.alive & ~st.owned).any()), "no seam ghosts"
+    fld = pack_fields(st)
+    slot = torch.arange(geom.n_slots, dtype=torch.float32, device=device)
+    fld[RSLOT] = torch.where(st.owned, slot, -slot - 1.0)
+    cut = tables.max_cut()
+    kern = strip_pair.vapor_sweep
+    n0 = kern.launches
+    out_k = kern(fld, backend.win, aux.delta, geom, 2, cut)
+    torch.cuda.synchronize()
+    assert kern.launches == n0 + 1
+    out_p = strip_pair.plain_vapor_sweep(fld, backend.win, aux.delta, geom,
+                                         2, cut)
+    alive = st.alive
+    assert bool((out_p[ORHO][alive] > 0).any())
+    for r in (ORHO, OCGX, OCGY, OFX, OFY):
+        assert torch.equal(out_k[r][alive], out_p[r][alive]), r

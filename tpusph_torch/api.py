@@ -7,23 +7,34 @@ configuration drives (``tpusph/bench.py::build_bench_sim``).
 measured particle distribution, and steps.
 
 Ported: create_box, add_particles, the pair_* styles of the bench
-(rhosum, taitwater, heatconduction, surfacetension), tables, thermo, run
-(with the first-violation geometry re-choice), get, natoms. Not ported
-yet (ROADMAP): the cellgrid/band/column backends, margin decay and the
-strip retry, phase change, the script layer, dumps and restarts.
+(rhosum, taitwater, heatconduction with the /phasechange variant,
+surfacetension), tables, thermo, the end-of-step hook registry and
+configure_phase_change (fix phase_change), run (with the violation
+re-choice and the margin decay), get, natoms. Not ported yet (ROADMAP):
+the cellgrid/band/column backends and with them the strip retry, the
+script layer, dumps and restarts.
+
+Entry points run on the card: ``Simulation()`` takes the CUDA device and
+raises where there is none; the CPU is used only when asked for with
+``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from tpusph_torch.io.thermo import ThermoWriter
 from tpusph_torch.ops.pallas_pair import TABLES_1D, TABLES_2D
-from tpusph_torch.ops.strip_pair import StripBackend, choose_strip_geometry
+from tpusph_torch.ops.phase_change import (
+    PhaseChangeConfig, make_end_of_step_hook,
+)
+from tpusph_torch.ops.strip_pair import (
+    StripBackend, choose_strip_geometry, pad_window_to_vreg,
+)
 from tpusph_torch.params import PairTables, PhysicsSpec
 from tpusph_torch.runner import Runner, thermo_scalars
 from tpusph_torch.state import (
@@ -39,6 +50,12 @@ class CapacityOverflow(RuntimeError):
     covers cutoff+skin (the 'dangerous builds' analog, SURVEY §5.2)."""
 
 
+class MarginDecay(RuntimeError):
+    """Control flow: the strip margin floor shows measured, persistent
+    slack, and a leaner geometry re-choice is due (``run`` continues as
+    after a violation, with LOWER floors)."""
+
+
 def _round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 
@@ -51,14 +68,21 @@ def _growth_bucket(natoms: int, prev: int) -> int:
     return natoms
 
 
+def _default_device() -> torch.device:
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: tpusph_torch runs on the card; pass "
+            "device=\"cpu\" to run on the CPU")
+    return torch.device("cuda")
+
+
 class Simulation:
     """One simulation: box + particles + physics + run loop."""
 
     def __init__(self, dim: int = 3, log: Optional[str] = None,
                  screen: bool = True, device=None):
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = _default_device() if device is None \
+            else torch.device(device)
         self.spec = PhysicsSpec(dim=dim)
         self.tables: Optional[PairTables] = None
         self.box: Optional[Box] = None
@@ -67,6 +91,7 @@ class Simulation:
         self.dt: float = 0.005
         self.step_count: int = 0
         self.time_acc: float = 0.0
+        self.capacity_pad: int = 0      # extra dead slots (phase-change pool)
         self.neighbor_skin: Optional[float] = None  # `neighbor <skin> bin`
         self.reneigh_every: int = 0     # `neigh_modify every N` (0 = check)
         self.log_path = log
@@ -78,6 +103,11 @@ class Simulation:
         self._thermo: Optional[ThermoWriter] = None
         self._runner: Optional[Runner] = None
         self._runner_key = None
+        # Modify::end_of_step registry: named hooks (state, tabs, dt, istep,
+        # aux, backend, box) -> (state, aux), composed in insertion order
+        self._eos_hooks: Dict[str, Callable] = {}
+        self.end_of_step_hook: Optional[Callable] = None
+        self.phase_change_config = None
         self._backend_cache: Dict = {}
         # strip geometry state: the chooser's inputs and the violation
         # re-choice's escalation (run)
@@ -88,6 +118,56 @@ class Simulation:
         self._strip_violations = 0
         self._margin_short = (0, 0)
         self._last_cb_step = 0
+        self._rebuilds_before = 0   # strip builds under discarded layouts
+        # margin decay (the inverse of the violation ratchet)
+        self._strip_decays = 0
+        self._decay_obs = 0
+        self._decay_need = None
+        self._decay_blocked = False
+        self._decay_prev_w = None
+        self._decay_nbuilds = None
+
+    # ------------------------------------------------------------ fix hooks
+
+    def add_end_of_step_hook(self, name: str, hook: Callable):
+        """Register a named Modify::end_of_step fix hook; hooks run in
+        insertion order after final_integrate."""
+        self._eos_hooks[name] = hook
+        self._compose_eos_hooks()
+
+    def remove_end_of_step_hook(self, name: str):
+        if name in self._eos_hooks:
+            del self._eos_hooks[name]
+            self._compose_eos_hooks()
+
+    def _compose_eos_hooks(self):
+        hooks = tuple(self._eos_hooks.values())
+        if not hooks:
+            self.end_of_step_hook = None
+        elif len(hooks) == 1:
+            self.end_of_step_hook = hooks[0]
+        else:
+            def composed(state, tabs, dt, istep, aux, backend, box,
+                         _hooks=hooks):
+                for h in _hooks:
+                    state, aux = h(state, tabs, dt, istep, aux, backend,
+                                   box)
+                return state, aux
+            self.end_of_step_hook = composed
+        self._runner = None
+
+    def configure_phase_change(self, config: PhaseChangeConfig):
+        """fix phase_change: evaporation mass exchange (SURVEY §2.3, §3.5).
+        Installs the end-of-step hook over the particle pool."""
+        if config.cutoff <= 0.0 and self.tables is not None:
+            config = dataclasses.replace(config, cutoff=self.tables.max_cut())
+        if self.capacity_pad == 0 and config.mode == "insert":
+            # reserve pool headroom for insertions
+            self.capacity_pad = max(len(self._staged.get("x", ())) // 4, 128)
+        self.phase_change_config = config
+        self.spec = dataclasses.replace(self.spec, phase_change=True)
+        self.add_end_of_step_hook("phase_change",
+                                  make_end_of_step_hook(config, self.spec))
 
     # ------------------------------------------------------------------ setup
 
@@ -137,8 +217,13 @@ class Simulation:
         self.spec = dataclasses.replace(self.spec, rhosum_every=every,
                                         rhosum_nd=bool(number_density))
 
-    def pair_heatconduction(self):
-        self.spec = dataclasses.replace(self.spec, heatconduction=True)
+    def pair_heatconduction(self, phasechange: bool = False):
+        """sph/heatconduction, or the /phasechange variant: pairs whose
+        tsat table entry is > 0 conduct against cv*T_sat."""
+        if phasechange:
+            self.spec = dataclasses.replace(self.spec, heat_phasechange=True)
+        else:
+            self.spec = dataclasses.replace(self.spec, heatconduction=True)
 
     def pair_surfacetension(self):
         self.spec = dataclasses.replace(self.spec, surface_tension=True)
@@ -156,7 +241,8 @@ class Simulation:
         self.state = state_from_arrays(
             s["x"], s["type"], rmass=s["rmass"], v=s["v"], rho=s["rho"],
             e=s["e"], cv=s["cv"], tag=s["tag"], mobile=s["mobile"],
-            capacity=_round_up(n, 128), device=self.device, **extras)
+            capacity=_round_up(n + self.capacity_pad, 128),
+            device=self.device, **extras)
 
     def _pull_state(self):
         """Sync the device state back into the staged host arrays (staged
@@ -194,17 +280,21 @@ class Simulation:
         cutoff = self.tables.max_cut()
         skin = self.neighbor_skin if self.neighbor_skin is not None \
             else 0.3 * cutoff
+        # wider column headroom under phase change: the growing vapour
+        # phase must not overflow the column budget between re-choices
+        headroom = 1.35 if self.phase_change_config is not None else 1.08
         prev = self._strip_geom_key[3] if self._strip_geom_key else 0
         gkey = ("strip", cutoff, skin, _growth_bucket(self.natoms, prev),
-                self.spec.dim, self._strip_drift, self._strip_extra)
+                self.spec.dim, headroom, self._strip_drift,
+                self._strip_extra)
         if self._strip_geom_key != gkey:
             if self.state is not None:
                 self._pull_state()
             self._strip_geom_key = gkey
             self._strip_geom = choose_strip_geometry(
                 self.box, cutoff, self.spec.dim, skin,
-                x=np.asarray(self._staged["x"]), drift=self._strip_drift,
-                extra_rows=self._strip_extra)
+                x=np.asarray(self._staged["x"]), headroom=headroom,
+                drift=self._strip_drift, extra_rows=self._strip_extra)
         geom = self._strip_geom
         if geom is None:
             raise NotImplementedError(
@@ -245,9 +335,11 @@ class Simulation:
     def _ensure_runner(self) -> Runner:
         self._derive_perf_flags()
         backend = self._select_strip_backend()
-        key = (self.spec, self.box.periodic, id(backend))
+        key = (self.spec, self.box.periodic, id(backend),
+               self.end_of_step_hook)
         if self._runner is None or self._runner_key != key:
-            self._runner = Runner(self.spec, self.box, backend)
+            self._runner = Runner(self.spec, self.box, backend,
+                                  end_of_step=self.end_of_step_hook)
             self._runner_key = key
         return self._runner
 
@@ -278,13 +370,29 @@ class Simulation:
         density field), re-choose the geometry from the CURRENT state and
         continue: steps completed before the abort are kept, and the
         re-chosen margins take the measured shortfall as an absolute
-        floor (the reference's first-violation path)."""
+        floor (the reference's first-violation path). When the margin
+        floor later shows persistent slack (``_maybe_decay_margins``),
+        re-choose a leaner geometry the same way."""
         attempts = 0
         remaining = nsteps
         pre = True
         while True:
             try:
                 return self._run_once(remaining, pre=pre)
+            except MarginDecay:
+                # de-escalation re-choice: _maybe_decay_margins already
+                # lowered the floors; keep executed progress
+                self._strip_decays += 1
+                done = self._continue_after_abort()
+                attempts = 1 if done > 0 else attempts + 1
+                if attempts > 2:
+                    raise RuntimeError(
+                        "strip margin decay made no progress twice — "
+                        "decay logic bug, aborting instead of looping")
+                remaining -= done
+                pre = False
+                if remaining <= 0:
+                    return self
             except CapacityOverflow:
                 if attempts >= 2:
                     raise
@@ -302,6 +410,11 @@ class Simulation:
                     # overflowed): escalate the drift allowance
                     self._strip_drift = min(self._strip_drift * 2.0, 8.0)
                 self._margin_short = (0, 0)
+                # a fresh violation episode re-arms (and resets) the
+                # margin-decay observer
+                self._decay_obs = 0
+                self._decay_need = None
+                self._decay_blocked = False
                 done = self._continue_after_abort()
                 # abort only on consecutive zero-progress re-chooses
                 attempts = 1 if done > 0 else attempts + 1
@@ -322,13 +435,71 @@ class Simulation:
         self.time_acc += done * self.dt
         self.step_count += done
         self._pull_state()
+        self._rebuilds_before = self.rebuilds
         self._strip_geom_key = None
         self._backend_cache = {}
         self._runner = None
         self._runner_key = None
         self.state = None
         self.aux = None
+        self._decay_nbuilds = None  # rebuild counts restart
         return done
+
+    _DECAY_K = 3          # consecutive rebuild observations with slack
+    _DECAY_SAFETY = 4     # rows kept above the measured need
+
+    def _maybe_decay_margins(self):
+        """De-escalate the strip margin floor (the inverse of the violation
+        ratchet, ``tpusph``'s api.py:899-975): after _DECAY_K consecutive
+        rebuilds whose measured unclipped need (GridData.margin_need)
+        shows at least one chunk of slack on both window sides, re-choose
+        with the floors lowered to the measured need — but only if the
+        128-row padded window would shrink (the pad is kept for geometry
+        parity with the reference; a same-W re-choice blocks further
+        attempts until the next violation episode)."""
+        g = self._strip_geom
+        aux = self.aux
+        if self._decay_prev_w is not None:
+            # first observation under a decay re-choice: did it shrink?
+            prev_w, self._decay_prev_w = self._decay_prev_w, None
+            if g.w >= prev_w:
+                self._decay_blocked = True
+                return
+        nb = int(aux.nbuilds.max())
+        last, self._decay_nbuilds = self._decay_nbuilds, nb
+        if last is not None and nb <= last:
+            return  # no rebuild since the last observation
+        nlo, nhi = (int(v) for v in aux.margin_need.cpu())
+        if nlo > -g.ch or nhi > -g.ch:
+            # tight fit (or a violation pending): restart the streak
+            self._decay_obs = 0
+            self._decay_need = None
+            return
+        prev = self._decay_need or (nlo, nhi)
+        self._decay_need = (max(prev[0], nlo), max(prev[1], nhi))
+        self._decay_obs += 1
+        if self._decay_obs < self._DECAY_K or self._decay_blocked:
+            return
+        rows_lo = max(g.mlo * g.ch + self._decay_need[0]
+                      + self._DECAY_SAFETY, 0)
+        rows_hi = max(g.mhi * g.ch + self._decay_need[1]
+                      + self._DECAY_SAFETY, 0)
+        mlo, mhi = pad_window_to_vreg(
+            g.ts, g.ch, -(-rows_lo // g.ch), -(-rows_hi // g.ch),
+            g.col_cap // g.ch)
+        new_w = g.ts + g.ch * (mlo + mhi)
+        if new_w >= g.w:
+            # the pad eats the slack: stop watching until a violation
+            self._decay_blocked = True
+            return
+        self._strip_extra = (rows_lo, rows_hi)
+        self._strip_drift = 1.0
+        self._decay_obs = 0
+        self._decay_need = None
+        self._decay_prev_w = g.w
+        raise MarginDecay(
+            f"strip margin slack measured over {self._DECAY_K} rebuilds: "
+            f"window {g.w} -> {new_w} rows (floors {rows_lo}/{rows_hi})")
 
     def _restore_integrator_fields(self):
         """Put the staged f/de/drho back into the re-sorted pool rows by tag
@@ -379,6 +550,7 @@ class Simulation:
             self.aux = aux
             self._last_cb_step = istep
             self._check_overflow()
+            self._maybe_decay_margins()
             if tw is not None and (istep % max(self.thermo_every, 1) == 0
                                    or istep in (start, last)):
                 tw.write_line(self._thermo_values(state, istep))
@@ -424,6 +596,13 @@ class Simulation:
         else:
             arr = dev[field]
         return np.asarray(arr)[alive][order]
+
+    @property
+    def rebuilds(self) -> int:
+        """Strip builds over the simulation's life, re-chosen geometries
+        included (each layout's aux counts its own from 1)."""
+        own = int(self.aux.nbuilds.sum()) if self.aux is not None else 0
+        return self._rebuilds_before + own
 
     @property
     def natoms(self) -> int:

@@ -1,7 +1,8 @@
 """Throughput benchmark of the torch port: particle-steps/s on the bench
 configuration of ``tpusph/bench.py`` (3D periodic two-phase box: rhosum +
 taitwater + heat conduction + CSF surface tension, a vapour sphere in
-liquid), driven through ``Simulation.run``.
+liquid; in ``boiling`` mode with fix phase_change), driven through
+``Simulation.run``.
 
 The JSON keys are the reference's, plus where the number was taken: torch
 and CUDA versions, the device's name and its power limit. There is no
@@ -38,14 +39,16 @@ def build_bench_sim(n_particles: int, dim: int = 3, multiphase: bool = True,
     Modes (``tpusph.bench.build_bench_sim``):
       uniform — both phases at rho0 = 1, zero velocities (kernel ceiling);
       dynamic — vapour rho0 = 0.1 via number-density rhosum plus a thermal
-                velocity field (rebuilds inside every timed window).
-    The boiling mode needs fix phase_change (ROADMAP Queue 1 item 8)."""
+                velocity field (rebuilds inside every timed window);
+      boiling — dynamic + sph/heatconduction/phasechange (T_sat 1.5 on the
+                liquid-vapour pair) + fix phase_change on a hot liquid
+                shell around the sphere (insertions force rebuilds).
+    ``device`` None means the card (``Simulation``)."""
     from tpusph_torch.api import Simulation
+    from tpusph_torch.ops.phase_change import PhaseChangeConfig
 
-    if mode not in ("uniform", "dynamic"):
-        raise NotImplementedError(
-            f"bench mode {mode!r} needs fix phase_change (ROADMAP Queue 1 "
-            "item 8)")
+    if mode not in ("uniform", "dynamic", "boiling"):
+        raise ValueError(f"unknown bench mode {mode!r}")
     sim = Simulation(dim=dim, screen=False, device=device)
     per_side = int(round(n_particles ** (1.0 / dim)))
     dx = 1.0
@@ -53,7 +56,7 @@ def build_bench_sim(n_particles: int, dim: int = 3, multiphase: bool = True,
     h = 3.0 * dx
     rho0 = 1.0
     m = rho0 * dx**dim
-    contrast = mode == "dynamic"
+    contrast = mode in ("dynamic", "boiling")
     rho_v = 0.1 if contrast else rho0
 
     per = (True, True, True) if dim == 3 else (True, True, False)
@@ -73,7 +76,7 @@ def build_bench_sim(n_particles: int, dim: int = 3, multiphase: bool = True,
         types[r < L / 5.0] = 2
     vap = types == 2
     v = None
-    if mode == "dynamic":
+    if mode in ("dynamic", "boiling"):
         # thermal velocity field (Mach ~0.06): max displacement reaches
         # skin/2 every ~40-60 steps -> >= 1 rebuild per 50-step window
         rng = np.random.default_rng(7)
@@ -88,7 +91,7 @@ def build_bench_sim(n_particles: int, dim: int = 3, multiphase: bool = True,
                                      ).astype(np.float32))
     sim.pair_rhosum(every=1, number_density=contrast)
     sim.pair_taitwater(morris=False)
-    sim.pair_heatconduction()
+    sim.pair_heatconduction(phasechange=mode == "boiling")
     pairs = [(i, j) for i in ((1, 2) if multiphase else (1,))
              for j in range(i, (2 if multiphase else 1) + 1)]
     # cross pair first: set_taitwater writes rho0/c0 for BOTH types
@@ -96,12 +99,75 @@ def build_bench_sim(n_particles: int, dim: int = 3, multiphase: bool = True,
         sim.tables.set_taitwater(i, j, rho0=rho_v if i == j == 2 else rho0,
                                  c0=10.0, viscosity=0.3, h=h)
         sim.tables.set_rhosum(i, j, h=h)
-        sim.tables.set_heatconduction(i, j, d=0.05, h=h)
+        tsat = 1.5 if (mode == "boiling" and i != j) else 0.0
+        sim.tables.set_heatconduction(i, j, d=0.05, h=h, tsat=tsat)
     if multiphase:
         sim.pair_surfacetension()
         sim.tables.set_surfacetension(1, 2, sigma=0.05, h=h)
+    if mode == "boiling":
+        # hot interface shell: T above threshold there, latent-throttled
+        hot = ~vap & (r < L / 4.0)
+        sim._staged["e"][:] = np.where(hot, 2.5, 1.0).astype(np.float32)
+        sim.configure_phase_change(PhaseChangeConfig(
+            t_threshold=2.0, latent=20.0, dm=0.05 * m, liquid_type=1,
+            vapor_type=2, every=10, prob=0.05, insert_offset=0.5 * dx,
+            cutoff=h, vapor_rho=rho_v))
     sim.neighbor_skin = 1.0 * dx
     sim.dt = 2e-3 if mode == "uniform" else 5e-3
+    sim.thermo(0)
+    return sim
+
+
+BUBBLE_SIDE, BUBBLE_DX = 12, 0.25
+
+
+def build_bubble_sim(device=None, mode: str = "insert", prob: float = 1.0,
+                     seed: int = 7, tsat: bool = True, sim=None,
+                     config_cls=None):
+    """The 12^3 vapour bubble in a hot liquid shell of
+    ``tests/test_phase_change.py``: a jittered lattice, conduction with T_sat
+    pinning (plain conduction, which conserves sum(e), with ``tsat=False``)
+    and fix phase_change in ``mode``. With ``prob = 1`` and
+    require_interface no random draw decides an event.
+
+    ``sim`` and ``config_cls`` take an empty ``Simulation`` and the
+    ``PhaseChangeConfig`` class of another package with the same API, so
+    a reference run can be built from the same numpy inputs; by default
+    they are this package's, on ``device``."""
+    from tpusph_torch.api import Simulation
+    from tpusph_torch.ops.phase_change import PhaseChangeConfig
+
+    if sim is None:
+        sim = Simulation(dim=3, screen=False, device=device)
+    config_cls = config_cls or PhaseChangeConfig
+    n_side, dx = BUBBLE_SIDE, BUBBLE_DX
+    L = n_side * dx
+    h = 2.4 * dx
+    sim.create_box([0, 0, 0], [L, L, L], periodic=(True,) * 3, ntypes=2)
+    rng = np.random.default_rng(11)
+    ax = np.arange(n_side, dtype=np.float32) * dx
+    g = np.stack(np.meshgrid(ax, ax, ax, indexing="ij"), -1).reshape(-1, 3)
+    g = (g + rng.uniform(-0.02 * dx, 0.02 * dx, g.shape)).astype(np.float32)
+    r = np.linalg.norm(g - L / 2, axis=1)
+    vap = r < L / 4
+    hot = ~vap & (r < L / 3)
+    sim.add_particles(
+        g, np.where(vap, 2, 1).astype(np.int32),
+        rho=np.where(vap, 0.1, 1.0).astype(np.float32),
+        e=np.where(vap, 1.0, np.where(hot, 3.0, 1.5)).astype(np.float32),
+        cv=1.0, rmass=np.where(vap, dx**3 / 10, dx**3).astype(np.float32))
+    sim.pair_heatconduction(phasechange=tsat)
+    for i in (1, 2):
+        for j in range(i, 3):
+            sim.tables.set_heatconduction(
+                i, j, d=0.05, h=h, tsat=2.0 if (tsat and i != j) else 0.0)
+    sim.capacity_pad = 1024
+    sim.configure_phase_change(config_cls(
+        t_threshold=2.0, latent=100.0, dm=5e-3, liquid_type=1, vapor_type=2,
+        every=2, prob=prob, m_min=8e-3, insert_offset=0.5 * dx, mode=mode,
+        cutoff=h, vapor_rho=0.1, seed=seed))
+    sim.neighbor_skin = 0.6 * dx
+    sim.dt = 1e-4
     sim.thermo(0)
     return sim
 
@@ -118,40 +184,50 @@ def run_bench(n_particles: int = 1_000_000, n_steps: int = 50, dim: int = 3,
     warmup windows that run until one passes with no geometry re-choice
     (the lattice-to-fluid transition re-chooses the margins; that belongs
     outside the timed region). Rebuild counts per window are reported so
-    a window that rebuilt more often reads as slower, not as noise.
-    ``sim`` takes a simulation already built by ``build_bench_sim``."""
+    a window that rebuilt more often reads as slower, not as noise;
+    ``value_all_windows`` is all the timed work over all the timed wall
+    time, so a re-choice inside a window counts there. ``sim`` takes a simulation already built by ``build_bench_sim``; its
+    mode is then the caller's ``mode``. ``particles`` and the rate count
+    the particles before the run, as the reference does."""
     if sim is None:
         sim = build_bench_sim(n_particles, dim=dim, multiphase=multiphase,
                               mode=mode, device=device)
     n = sim.natoms
 
-    def rebuilds():
-        return int(sim.aux.nbuilds.sum())
+    def rechoices():
+        # escalations (violation recovery) + de-escalations (margin decay)
+        return sim._strip_violations + sim._strip_decays
 
     sim.run(n_steps)
     _sync(sim)
     warmup_windows = 1
     prev = -1
-    while warmup_windows < WARMUP_MAX and sim._strip_violations != prev:
-        prev = sim._strip_violations
+    while warmup_windows < WARMUP_MAX and rechoices() != prev:
+        prev = rechoices()
         sim.run(n_steps)
         _sync(sim)
         warmup_windows += 1
 
-    walls, nbuilds = [], []
+    walls, nbuilds, rechosen = [], [], []
     for _ in range(n_windows):
-        nb0 = rebuilds()
+        nb0, rc0 = sim.rebuilds, rechoices()
         t0 = time.perf_counter()
         sim.run(n_steps)
         _sync(sim)
         walls.append(time.perf_counter() - t0)
-        nbuilds.append(rebuilds() - nb0)
+        nbuilds.append(sim.rebuilds - nb0)
+        rechosen.append(rechoices() - rc0)
 
     dt_wall = float(np.median(walls))
     psps = n * n_steps / dt_wall
+    # all the work over all the time of the timed windows: unlike the
+    # median, it carries a window that holds a geometry re-choice
+    psps_all = n * n_steps * n_windows / float(np.sum(walls))
     styles = {"uniform": "rhosum+taitwater+heatcond+CSF, quiescent",
               "dynamic": "rhosum/multiphase+taitwater+heatcond+CSF, "
-                         "density contrast 10x + thermal field"}[mode]
+                         "density contrast 10x + thermal field",
+              "boiling": "rhosum/multiphase+taitwater+heatcond/phasechange"
+                         "+CSF+fix phase_change"}[mode]
     name, limit = card_info() if sim.device.type == "cuda" \
         else (sim.device.type, "not measured")
     return {
@@ -166,11 +242,15 @@ def run_bench(n_particles: int = 1_000_000, n_steps: int = 50, dim: int = 3,
         "baseline_range": [2.0e7, 1.0e8],
         "vs_baseline_range": [round(psps / 1.0e8, 6),
                               round(psps / 2.0e7, 6)],
+        "value_all_windows": round(psps_all, 1),
         "wall_s": round(dt_wall, 3),
         "windows_s": [round(w, 3) for w in walls],
         "rebuilds_per_window": nbuilds,
-        "geometry_rechoices": sim._strip_violations,
-        "geometry_decays": 0,
+        # geometry re-choices inside each timed window (the host chooser
+        # runs there: such a window reads far slower)
+        "rechoices_per_window": rechosen,
+        "geometry_rechoices": rechoices(),
+        "geometry_decays": sim._strip_decays,
         "warmup_windows": warmup_windows,
         "strip_w": sim._strip_geom.w,
         "steps": n_steps,

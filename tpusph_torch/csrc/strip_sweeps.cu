@@ -1,7 +1,10 @@
-// Strip pair sweeps (rho, colour gradient, force) for Hopper (sm_90a).
+// Strip pair sweeps (rho, colour gradient, force) and the phase-change vapor
+// query for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel tpusph/ops/strip_pair.py::make_strip_kernel
-// (the pl.pallas_call at strip_pair.py:1233), one launcher per sweep. The
+// The three pair sweeps replace the Pallas TPU kernel
+// tpusph/ops/strip_pair.py::make_strip_kernel (the pl.pallas_call at
+// strip_pair.py:1233), one launcher per sweep; the vapor sweep at the end of
+// this file replaces make_vapor_kernel. The
 // physics mirrors tpusph/ops/tile_physics.py term by term; the plain
 // PyTorch version in tpusph_torch/ops/strip_pair.py::plain_sweep is the
 // reference these kernels are held against.
@@ -531,6 +534,126 @@ int launch(const float* fld, const int* perm, const float* shift,
   return (int)cudaGetLastError();
 }
 
+// ---- the vapor sweep: the fix phase_change interface query ---------------
+//
+// Replaces tpusph/ops/strip_pair.py::make_vapor_kernel (strip_pair.py:1251,
+// the pl.pallas_call at :1348); the plain version it is held against is
+// tpusph_torch/ops/strip_pair.py::plain_vapor_sweep. Same windows and work
+// split as strip_sweep_kernel. Per i-row it writes the count of type-vtype
+// neighbours with 1e-12 < rsq < cut2 (row ORHO), the nearest one's slot and
+// rsq (OCGX, OCGY) and the nearest owned one's (OFX, OFY); 0 / kVaporBig
+// where there is none. Field row RSLOT carries each slot sign-encoded
+// (slot when owned, -(slot+1) for a seam ghost); slots are exact floats
+// below 2^24 (the wrapper checks).
+//
+// Tie rule, the TPU kernel's: per offset the smallest |slot| among the rows
+// at the minimum rsq, and across offsets a strictly smaller rsq replaces
+// the running best, so the winner is the lexicographic minimum of
+// (rsq, kk, |slot|). rsq is formed with round-to-nearest intrinsics in the
+// plain version's order, ((dx0*dx0 + dx1*dx1) + dx2*dx2), never contracted
+// into FMAs, so the kernel and the plain version agree bit for bit.
+//
+// What bounds it: instruction throughput over nnbr*W candidates per row,
+// about 5 x 4 bytes read from shared memory per candidate. The design stages
+// x, y, z, type and the encoded slot of the block's union window once per
+// offset, rejects a candidate of another type after one shared load and
+// before any arithmetic (most candidates are liquid), and keeps both running
+// argmins in registers. The query runs once every `every` steps.
+
+constexpr float kVaporBig = 1e30f;
+enum { SV_X = 0, SV_Y, SV_Z, SV_TYPE, SV_SLOT, SV_NF };
+
+__global__ void __launch_bounds__(kMaxThreads)
+strip_vapor_kernel(const float* __restrict__ fld,
+                   const int* __restrict__ perm,
+                   const float* __restrict__ shift,
+                   const int* __restrict__ delta, Geo g, int vtype,
+                   float cut2, float* __restrict__ out) {
+  extern __shared__ float win[];  // [SV_NF][maxrows]
+  const int maxrows = max_window_rows(g);
+  const int n = g.n_slots;
+  const int c = blockIdx.x;
+  const int b = blockIdx.y;
+  const int brows = g.t_blk * g.ts;
+  const int tt = threadIdx.x / g.ts;
+  const int i = c * g.col_cap + b * brows + threadIdx.x;
+  const bool alive = fld[RTYPE * n + i] > 0.5f;
+
+  float cnt = 0.f;
+  float acc_mn = kVaporBig, acc_sl = 0.f;
+  float acc_mn_o = kVaporBig, acc_sl_o = 0.f;
+  if (__syncthreads_or(alive)) {
+    const float xi = fld[RX * n + i], yi = fld[RY * n + i],
+                zi = fld[RZ * n + i];
+    const float vlo = (float)vtype - 0.5f, vhi = (float)vtype + 0.5f;
+    for (int kk = 0; kk < g.nnbr; ++kk) {
+      const int jc = perm[c * g.nnbr + kk];
+      if (jc < 0) continue;  // uniform over the block
+      int bb = b + delta[(c * g.nnbr + kk) * g.nblocks + b];
+      bb = min(max(bb, 0), g.nblocks - 1);
+      const int ulo = max(bb * brows - g.ch * g.mlo, 0);
+      const int uhi = min((bb + 1) * brows + g.ch * g.mhi, g.col_cap);
+      const float sx = shift[(c * g.nnbr + kk) * 2];
+      const float sy = shift[(c * g.nnbr + kk) * 2 + 1];
+
+      __syncthreads();  // the previous offset's readers are done
+      for (int k = threadIdx.x; k < uhi - ulo; k += blockDim.x) {
+        const int j = jc * g.col_cap + ulo + k;
+        win[SV_X * maxrows + k] = fld[RX * n + j];
+        win[SV_Y * maxrows + k] = fld[RY * n + j];
+        win[SV_Z * maxrows + k] = fld[RZ * n + j];
+        win[SV_TYPE * maxrows + k] = fld[RTYPE * n + j];
+        win[SV_SLOT * maxrows + k] = fld[RSLOT * n + j];
+      }
+      __syncthreads();
+      if (!alive) continue;
+
+      const int tp = bb * g.t_blk + tt;
+      const int wlo = max(tp * g.ts - g.ch * g.mlo, 0) - ulo;
+      const int whi = min(tp * g.ts + g.ts + g.ch * g.mhi, g.col_cap) - ulo;
+      float mn = kVaporBig, sl = kVaporBig;
+      float mn_o = kVaporBig, sl_o = kVaporBig;
+      for (int k = wlo; k < whi; ++k) {
+        const float tj = win[SV_TYPE * maxrows + k];
+        if (!(tj > vlo && tj < vhi)) continue;
+        const float xj = __fadd_rn(win[SV_X * maxrows + k], sx);
+        const float yj = __fadd_rn(win[SV_Y * maxrows + k], sy);
+        const float dx0 = __fsub_rn(xi, xj);
+        const float dx1 = __fsub_rn(yi, yj);
+        const float dx2 = __fsub_rn(zi, win[SV_Z * maxrows + k]);
+        const float rsq = __fadd_rn(
+            __fadd_rn(__fmul_rn(dx0, dx0), __fmul_rn(dx1, dx1)),
+            __fmul_rn(dx2, dx2));
+        if (!(rsq > 1e-12f) || !(rsq < cut2)) continue;
+        cnt += 1.f;
+        const float enc = win[SV_SLOT * maxrows + k];
+        const float sa = enc >= 0.f ? enc : -enc - 1.f;
+        if (rsq < mn || (rsq == mn && sa < sl)) {
+          mn = rsq;
+          sl = sa;
+        }
+        if (enc >= 0.f && (rsq < mn_o || (rsq == mn_o && sa < sl_o))) {
+          mn_o = rsq;
+          sl_o = sa;
+        }
+      }
+      if (mn < acc_mn) {
+        acc_mn = mn;
+        acc_sl = sl;
+      }
+      if (mn_o < acc_mn_o) {
+        acc_mn_o = mn_o;
+        acc_sl_o = sl_o;
+      }
+    }
+  }
+  out[ORHO * n + i] = cnt;
+  out[OCGX * n + i] = acc_sl;
+  out[OCGY * n + i] = acc_mn;
+  out[OFX * n + i] = acc_sl_o;
+  out[OFY * n + i] = acc_mn_o;
+}
+
 }  // namespace
 
 #define STRIP_ARGS                                                           \
@@ -553,6 +676,30 @@ extern "C" int strip_cgrad_launch(STRIP_ARGS) {
 
 extern "C" int strip_force_launch(STRIP_ARGS) {
   return launch<SW_FORCE>(STRIP_PASS);
+}
+
+extern "C" int strip_vapor_launch(const float* fld, const int* perm,
+                                  const float* shift, const int* delta,
+                                  float* out, int n_slots, int ncols,
+                                  int col_cap, int ts, int ch, int t_blk,
+                                  int nblocks, int mlo, int mhi, int nnbr,
+                                  int vtype, float cut2, void* stream) {
+  Geo g{n_slots, ncols, col_cap, ts, ch, t_blk, nblocks, mlo, mhi, nnbr};
+  const int threads = t_blk * ts;
+  if (threads > kMaxThreads || threads < 1 || nblocks < 1 || ncols < 1) {
+    return (int)cudaErrorInvalidConfiguration;
+  }
+  const size_t smem = sizeof(float) * SV_NF * max_window_rows(g);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        strip_vapor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dim3 grid(ncols, nblocks);
+  strip_vapor_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+      fld, perm, shift, delta, g, vtype, cut2, out);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* strip_error_string(int err) {

@@ -1,4 +1,5 @@
-"""Build and bind the hand-written CUDA strip sweeps
+"""Build and bind the hand-written CUDA strip sweeps — rho, colour
+gradient, force and the phase-change vapor query
 (``tpusph_torch/csrc/strip_sweeps.cu``).
 
 The source has a plain C interface: it is compiled with ``nvcc`` for
@@ -26,8 +27,10 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_INT_ARGS = ("n_slots", "ncols", "col_cap", "ts", "ch", "t_blk", "nblocks",
-             "mlo", "mhi", "nnbr", "dim", "kernel", "flags", "T1")
+_GEOM_ARGS = ("n_slots", "ncols", "col_cap", "ts", "ch", "t_blk",
+              "nblocks", "mlo", "mhi", "nnbr")
+_INT_ARGS = _GEOM_ARGS + ("dim", "kernel", "flags", "T1")
+_VAPOR_INT_ARGS = _GEOM_ARGS + ("vtype",)
 
 
 class _Lib:
@@ -78,23 +81,38 @@ def load() -> _Lib:
         fn.argtypes = ([ptr] * 7 + [ctypes.c_int] * len(_INT_ARGS)
                        + [ctypes.c_float, ptr])
         fn.restype = ctypes.c_int
+    fn = handle.strip_vapor_launch
+    fn.argtypes = ([ptr] * 5 + [ctypes.c_int] * len(_VAPOR_INT_ARGS)
+                   + [ctypes.c_float, ptr])
+    fn.restype = ctypes.c_int
     handle.strip_error_string.argtypes = [ctypes.c_int]
     handle.strip_error_string.restype = ctypes.c_char_p
     _lib = _Lib(handle, log.read_text() if log.exists() else "")
     return _lib
 
 
+def _call(name: str, tensors, ints, names, scalar: float, device) -> None:
+    lib = load().handle
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = getattr(lib, f"strip_{name}_launch")(
+        *[t.data_ptr() for t in tensors], *[int(ints[k]) for k in names],
+        float(scalar), stream)
+    if rc != 0:
+        raise RuntimeError(f"strip {name} sweep launch failed: CUDA error "
+                           f"{rc} ({lib.strip_error_string(rc).decode()})")
+
+
 def launch(sweep: str, fld, perm, shift, delta, tab2, tab1, out, *,
            cutmax2: float, **ints) -> None:
     """Launch one sweep on the current stream; raises on a refused launch.
     Tensors are checked by the caller (strip_pair.SweepKernel)."""
-    lib = load().handle
-    fn = getattr(lib, f"strip_{sweep}_launch")
-    stream = torch.cuda.current_stream(fld.device).cuda_stream
-    rc = fn(fld.data_ptr(), perm.data_ptr(), shift.data_ptr(),
-            delta.data_ptr(), tab2.data_ptr(), tab1.data_ptr(),
-            out.data_ptr(), *[int(ints[k]) for k in _INT_ARGS],
-            float(cutmax2), stream)
-    if rc != 0:
-        raise RuntimeError(f"strip {sweep} sweep launch failed: CUDA error "
-                           f"{rc} ({lib.strip_error_string(rc).decode()})")
+    _call(sweep, (fld, perm, shift, delta, tab2, tab1, out), ints,
+          _INT_ARGS, cutmax2, fld.device)
+
+
+def launch_vapor(fld, perm, shift, delta, out, *, cut2: float,
+                 **ints) -> None:
+    """Launch the vapor sweep on the current stream; raises on a refused
+    launch. Tensors are checked by the caller (strip_pair.VaporKernel)."""
+    _call("vapor", (fld, perm, shift, delta, out), ints, _VAPOR_INT_ARGS,
+          cut2, fld.device)

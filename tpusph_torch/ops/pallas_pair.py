@@ -12,7 +12,8 @@ RX, RY, RZ = 0, 1, 2
 RM = 3      # mass
 RTYPE = 4   # type as f32 (0 = dead)
 RRHO = 5
-RSLOT = 6   # slot index (vapor sweep only; not on this slice)
+RSLOT = 6   # sign-encoded slot: slot if owned, -(slot+1) if a seam ghost
+            # (vapor sweep only)
 RMIX = 7    # per-tile mixed-phase flag (cgrad skip, force ST skip)
 RVX, RVY, RVZ = 8, 9, 10
 RE = 11

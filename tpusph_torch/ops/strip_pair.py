@@ -1,7 +1,8 @@
 """The strip backend on torch: z-sorted dense columns, rank windows and
 seam-ghost bands — the counterpart of ``tpusph/ops/strip_pair.py`` (see its
-module docstring for the layout's design), with the three pair sweeps as
-hand-written CUDA kernels (``csrc/strip_sweeps.cu``).
+module docstring for the layout's design), with the three pair sweeps and
+the fix phase_change vapor query as hand-written CUDA kernels
+(``csrc/strip_sweeps.cu``).
 
 What the port keeps, and why:
   * ``choose_strip_geometry`` is the reference's host chooser carried over
@@ -36,11 +37,11 @@ from tpusph_torch.ops import cuda_build
 from tpusph_torch.ops import tile_physics
 from tpusph_torch.ops.band_pair import (
     BandBackend, _neighbor_offsets, _plane_shift, dead_lane_fill,
-    needs_rebuild,
+    needs_rebuild, pack_fields,
 )
 from tpusph_torch.ops.pallas_pair import (
     F_ROWS, OCGX, OCGY, ODE, ODRHO, OFX, OFY, OFZ, ORHO, RCV, RM, RMIX,
-    RRHO, RTYPE, RX, RY, RZ,
+    RRHO, RSLOT, RTYPE, RX, RY, RZ,
 )
 from tpusph_torch.params import DeviceTables, PhysicsSpec
 from tpusph_torch.state import Box, ParticleState
@@ -778,8 +779,9 @@ def _take(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def _window_pairs(fld, win: StripWindows, delta, geom: StripGeometry,
                   c0: int, c1: int, cutmax2: float):
-    """(i slot, j slot, sx, sy) of every pair of columns [c0, c1) that the
-    kernel's windows hold with 1e-12 < rsq < cutmax2.
+    """(i slot, j slot, sx, sy, kk) of every pair of columns [c0, c1) that
+    the kernel's windows hold with 1e-12 < rsq < cutmax2; kk is the pair's
+    neighbour-offset index.
 
     A bounding-box prefilter drops, per group of _GROUP alive i rows,
     window rows whose distance to the group's box reaches the cutoff. It
@@ -833,7 +835,8 @@ def _window_pairs(fld, win: StripWindows, delta, geom: StripGeometry,
     col_m = (group // (ng * ntiles)) * M + m  # flat index into (k, M)
     sxy = shift.reshape(-1, 2).index_select(0, col_m.index_select(0, q))
     return (ii.reshape(-1).index_select(0, hit),
-            _take(jslot, tile_m).index_select(0, q), sxy[:, 0], sxy[:, 1])
+            _take(jslot, tile_m).index_select(0, q), sxy[:, 0], sxy[:, 1],
+            (m // W).index_select(0, q))
 
 
 def plain_sweep(sweep: str, fld: torch.Tensor, tabs: DeviceTables,
@@ -859,8 +862,8 @@ def plain_sweep(sweep: str, fld: torch.Tensor, tabs: DeviceTables,
     sel = fld[list(rows)]                                     # (R, n)
     for c0 in range(0, geom.ncols, cstep):
         c1 = min(c0 + cstep, geom.ncols)
-        pi, pj, psx, psy = _window_pairs(fld, win, delta, geom, c0, c1,
-                                         tabs.cutmax2[sweep])
+        pi, pj, psx, psy, _ = _window_pairs(fld, win, delta, geom, c0, c1,
+                                            tabs.cutmax2[sweep])
         r0, r1 = c0 * cap, c1 * cap
         h_rows = tile_physics.hoist_i(
             {r: fld[r, r0:r1] for r in rows}, tabs.tab1, spec, sweep)
@@ -900,6 +903,38 @@ def _spec_flags(spec: PhysicsSpec) -> int:
                if getattr(spec, name))
 
 
+def _check_inputs(what: str, fld: torch.Tensor, checks) -> None:
+    """Raise ValueError unless every (name, tensor, shape, dtype) of
+    ``checks`` has that shape and dtype, lies on fld's device and is
+    contiguous."""
+    for name, t, shape, dtype in checks:
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{what}: {name} is {tuple(t.shape)} {t.dtype}, "
+                             f"expected {shape} {dtype}")
+        if t.device != fld.device:
+            raise ValueError(f"{what}: {name} on {t.device}, fld on "
+                             f"{fld.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    if fld.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: no kernel for {fld.device}")
+
+
+def _window_checks(fld, win: StripWindows, delta, geom: StripGeometry):
+    return (("fld", fld, (F_ROWS, geom.n_slots), torch.float32),
+            ("perm", win.perm, (geom.ncols, geom.nnbr), torch.int32),
+            ("shift", win.shift, (geom.ncols, geom.nnbr, 2), torch.float32),
+            ("delta", delta, (geom.ncols, geom.nnbr, geom.nblocks),
+             torch.int32))
+
+
+def _geom_ints(geom: StripGeometry) -> dict:
+    return dict(n_slots=geom.n_slots, ncols=geom.ncols, col_cap=geom.col_cap,
+                ts=geom.ts, ch=geom.ch, t_blk=geom.t_blk,
+                nblocks=geom.nblocks, mlo=geom.mlo, mhi=geom.mhi,
+                nnbr=geom.nnbr)
+
+
 class SweepKernel:
     """Wrapper of one CUDA strip sweep.
 
@@ -926,38 +961,18 @@ class SweepKernel:
                  win: StripWindows, delta: torch.Tensor,
                  geom: StripGeometry, spec: PhysicsSpec) -> torch.Tensor:
         n, T1 = geom.n_slots, tabs.tab1.shape[1]
-        for name, t, shape, dtype in (
-                ("fld", fld, (F_ROWS, n), torch.float32),
+        _check_inputs(f"{self.sweep} sweep", fld, _window_checks(
+            fld, win, delta, geom) + (
                 ("tab2", tabs.tab2, (8, T1, T1), torch.float32),
-                ("tab1", tabs.tab1, (5, T1), torch.float32),
-                ("perm", win.perm, (geom.ncols, geom.nnbr), torch.int32),
-                ("shift", win.shift, (geom.ncols, geom.nnbr, 2),
-                 torch.float32),
-                ("delta", delta, (geom.ncols, geom.nnbr, geom.nblocks),
-                 torch.int32)):
-            if tuple(t.shape) != shape or t.dtype != dtype:
-                raise ValueError(f"{self.sweep} sweep: {name} is "
-                                 f"{tuple(t.shape)} {t.dtype}, expected "
-                                 f"{shape} {dtype}")
-            if t.device != fld.device:
-                raise ValueError(f"{self.sweep} sweep: {name} on {t.device},"
-                                 f" fld on {fld.device}")
-            if not t.is_contiguous():
-                raise ValueError(f"{self.sweep} sweep: {name} must be "
-                                 "contiguous")
+                ("tab1", tabs.tab1, (5, T1), torch.float32)))
         if fld.device.type == "cpu":
             return plain_sweep(self.sweep, fld, tabs, win, delta, geom, spec)
-        if fld.device.type != "cuda":
-            raise ValueError(f"{self.sweep} sweep: no kernel for "
-                             f"{fld.device}")
         out = torch.zeros(8, n, dtype=torch.float32, device=fld.device)
         cuda_build.launch(
             self.sweep, fld, win.perm, win.shift, delta, tabs.tab2,
-            tabs.tab1, out, n_slots=n, ncols=geom.ncols,
-            col_cap=geom.col_cap, ts=geom.ts, ch=geom.ch, t_blk=geom.t_blk,
-            nblocks=geom.nblocks, mlo=geom.mlo, mhi=geom.mhi,
-            nnbr=geom.nnbr, dim=geom.dim, kernel=spec.kernel,
-            flags=_spec_flags(spec), T1=T1, cutmax2=tabs.cutmax2[self.sweep])
+            tabs.tab1, out, dim=geom.dim, kernel=spec.kernel,
+            flags=_spec_flags(spec), T1=T1, cutmax2=tabs.cutmax2[self.sweep],
+            **_geom_ints(geom))
         self.launches += 1
         return out
 
@@ -966,6 +981,140 @@ rho_sweep = SweepKernel("rho")
 cgrad_sweep = SweepKernel("cgrad")
 force_sweep = SweepKernel("force")
 SWEEPS = {"rho": rho_sweep, "cgrad": cgrad_sweep, "force": force_sweep}
+
+
+# --------------------------------------------------------------------------
+# the vapor sweep (fix phase_change interface query)
+# --------------------------------------------------------------------------
+
+VAPOR_BIG = 1e30   # rsq of "no candidate" in the vapor sweep's output
+
+
+def _vapor_cut2(cut: float) -> float:
+    """cut^2 as the float32 both versions compare rsq against."""
+    return float(np.float32(cut * cut))
+
+
+def _lex_argmin(pi: torch.Tensor, rsq: torch.Tensor, kk: torch.Tensor,
+                sl: torch.Tensor, n: int):
+    """Per row r of [0, n): (slot, rsq) of the pair that is the
+    lexicographic minimum of (rsq, kk, slot) over the pairs with pi == r;
+    (0, VAPOR_BIG) for a row with none."""
+    dev = rsq.device
+    mn = torch.full((n,), VAPOR_BIG, dtype=torch.float32, device=dev
+                    ).scatter_reduce_(0, pi, rsq, "amin")
+    tie = rsq == mn.index_select(0, pi)
+    kmin = torch.full((n,), 1 << 30, dtype=kk.dtype, device=dev
+                      ).scatter_reduce_(0, pi[tie], kk[tie], "amin")
+    tie &= kk == kmin.index_select(0, pi)
+    slot = torch.full((n,), VAPOR_BIG, dtype=torch.float32, device=dev
+                      ).scatter_reduce_(0, pi[tie], sl[tie], "amin")
+    slot = torch.where(mn < VAPOR_BIG, slot, 0.0)
+    return slot, mn
+
+
+def plain_vapor_sweep(fld: torch.Tensor, win: StripWindows,
+                      delta: torch.Tensor, geom: StripGeometry, vtype: int,
+                      cut: float) -> torch.Tensor:
+    """The plain PyTorch version of the vapor sweep, on any device.
+
+    Same windows as ``plain_sweep``. A pair is live when i is alive, j has
+    type ``vtype``, and 1e-12 < rsq < cut^2, with rsq = (dx0*dx0 +
+    dx1*dx1) + dx2*dx2 and dx = x_i - (x_j + image shift) — the kernel's
+    formula and order, so both give the same rsq bit for bit. Field row
+    RSLOT holds each slot sign-encoded: slot for an owned row, -(slot+1)
+    for a seam ghost. Returns the (8, n_slots) output matrix:
+
+      ORHO  count of live pairs          (0 with none)
+      OCGX  nearest j's slot             (0)
+      OCGY  nearest j's rsq              (VAPOR_BIG)
+      OFX   nearest owned j's slot       (0)
+      OFY   nearest owned j's rsq        (VAPOR_BIG)
+
+    Tie rule (the TPU kernel's, strip_pair.py:1307-1318): per neighbour
+    offset the smallest slot among the rows at the minimum rsq, and across
+    offsets a strictly smaller rsq replaces the running best. The nearest
+    is therefore the lexicographic minimum of (rsq, offset index kk,
+    slot), and the nearest owned one the same over slot_enc >= 0."""
+    dev = fld.device
+    n, cap = geom.n_slots, geom.col_cap
+    cut2 = _vapor_cut2(cut)
+    out = torch.zeros(8, n, dtype=torch.float32, device=dev)
+    out[OCGY] = VAPOR_BIG
+    out[OFY] = VAPOR_BIG
+    cstep = max(1, _PLAIN_CHUNK * _GROUP // (cap * geom.nnbr * geom.w))
+    for c0 in range(0, geom.ncols, cstep):
+        c1 = min(c0 + cstep, geom.ncols)
+        pi, pj, psx, psy, kk = _window_pairs(fld, win, delta, geom, c0, c1,
+                                             cut2)
+        tj = fld[RTYPE].index_select(0, pj)
+        keep = ((tj > vtype - 0.5) & (tj < vtype + 0.5)
+                & (fld[RTYPE].index_select(0, pi) > 0.5))
+        pi, pj, psx, psy, kk = (t[keep] for t in (pi, pj, psx, psy, kk))
+        dx = [fld[RX + a].index_select(0, pi)
+              - (fld[RX + a].index_select(0, pj) + s)
+              for a, s in ((0, psx), (1, psy))]
+        dx.append(fld[RZ].index_select(0, pi) - fld[RZ].index_select(0, pj))
+        rsq = (dx[0] * dx[0] + dx[1] * dx[1]) + dx[2] * dx[2]
+        live = (rsq > 1e-12) & (rsq < cut2)
+        r0, m = c0 * cap, (c1 - c0) * cap
+        li = pi[live] - r0
+        rsq, kk, enc = rsq[live], kk[live], fld[RSLOT].index_select(
+            0, pj[live])
+        sl = torch.where(enc >= 0, enc, -enc - 1.0)
+        out[ORHO, r0:r0 + m] = torch.zeros(m, device=dev).index_add_(
+            0, li, torch.ones_like(rsq))
+        out[OCGX, r0:r0 + m], out[OCGY, r0:r0 + m] = _lex_argmin(
+            li, rsq, kk, sl, m)
+        own = enc >= 0
+        out[OFX, r0:r0 + m], out[OFY, r0:r0 + m] = _lex_argmin(
+            li[own], rsq[own], kk[own], sl[own], m)
+    return out
+
+
+class VaporKernel:
+    """Wrapper of the CUDA vapor sweep (``strip_vapor_launch``).
+
+    Replaces ``tpusph.ops.strip_pair.make_vapor_kernel`` (the
+    ``pl.pallas_call`` at strip_pair.py:1348). CPU tensors take the plain
+    version (``plain_vapor_sweep``); CUDA tensors launch the kernel or
+    raise. ``launches`` counts kernel launches only.
+
+    On the card the sweep is bound by instruction throughput over the
+    nnbr*W candidate rows of each i-row, about 20 bytes of shared memory
+    read per candidate. The kernel stages x, y, z, type and the encoded
+    slot of each block's union window once per neighbour column and
+    rejects a candidate of another type after one shared load, before any
+    arithmetic; both running argmins live in registers."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, fld: torch.Tensor, win: StripWindows,
+                 delta: torch.Tensor, geom: StripGeometry, vtype: int,
+                 cut: float) -> torch.Tensor:
+        _check_inputs("vapor sweep", fld,
+                      _window_checks(fld, win, delta, geom))
+        n = geom.n_slots
+        if n >= 1 << 24:
+            raise ValueError(f"vapor sweep: {n} slots; slots travel as "
+                             "float32 and must stay below 2**24")
+        if cut > geom.margin_dist + 1e-9:
+            raise ValueError(f"vapor sweep: cut {cut} beyond the windows' "
+                             f"reach {geom.margin_dist}")
+        if fld.device.type == "cpu":
+            return plain_vapor_sweep(fld, win, delta, geom, vtype, cut)
+        out = torch.zeros(8, n, dtype=torch.float32, device=fld.device)
+        cuda_build.launch_vapor(fld, win.perm, win.shift, delta, out,
+                                vtype=int(vtype), cut2=_vapor_cut2(cut),
+                                **_geom_ints(geom))
+        self.launches += 1
+        return out
+
+
+vapor_sweep = VaporKernel()
+# every kernel wrapper of the strip backend, by name (launch counts)
+KERNELS = {**SWEEPS, "vapor": vapor_sweep}
 
 
 # --------------------------------------------------------------------------
@@ -1044,6 +1193,38 @@ class StripBackend(BandBackend):
     def init_aux(self, state: ParticleState, box: Box):
         state, aux = build_strips(self.resize(state), self.geom, box)
         return state, self._attach_mix(state, aux)
+
+    def vapor_neighbor(self, state: ParticleState, box: Box, vtype: int,
+                       cut: float, aux: GridData):
+        """fix phase_change interface query over the strip windows: per
+        pool row (count, nearest, rsq, near_owned, rsq_owned) of the
+        type-``vtype`` neighbours within ``cut`` (clipped to the windows'
+        reach, cutoff + skin), with ``inf`` rsq where there is none. A
+        nearest seam ghost is resolved to its source row, so grow mode
+        targets the owned particle (``tpusph``'s strip_pair.py:1494-1503).
+        """
+        geom = self.geom
+        n = geom.n_slots
+        cut = float(min(cut, geom.margin_dist))
+        fld = pack_fields(state)
+        slot = torch.arange(n, dtype=torch.float32, device=state.device)
+        # sign-encoded slot: >= 0 owned, -(slot+1) seam ghost
+        fld[RSLOT] = torch.where(state.owned, slot, -slot - 1.0)
+        out = vapor_sweep(fld, self.win, aux.delta, geom, vtype, cut)
+        count = out[ORHO].to(torch.int64)
+        nearest = out[OCGX].clamp(0, n - 1).to(torch.int64)
+        inf = torch.full((), float("inf"), device=state.device)
+        rsq = torch.where(count > 0, out[OCGY], inf)
+        near_o = out[OFX].clamp(0, n - 1).to(torch.int64)
+        rsq_o = torch.where(out[OFY] < 1e29, out[OFY], inf)
+        if aux.seam_src.numel() > 0:
+            owner_of = _scatter_rows(torch.arange(n, device=state.device),
+                                     aux.seam_dest, aux.seam_src, n)
+            resolved = owner_of.index_select(0, nearest)
+            better = state.owned.index_select(0, resolved) & (rsq < rsq_o)
+            near_o = torch.where(better, resolved, near_o)
+            rsq_o = torch.where(better, rsq, rsq_o)
+        return count, nearest, rsq, near_o, rsq_o
 
     def refresh_seam(self, state: ParticleState, aux: GridData
                      ) -> ParticleState:

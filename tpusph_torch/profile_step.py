@@ -1,0 +1,91 @@
+"""Where the time goes in one timed bench window on the card.
+
+    python -m tpusph_torch.profile_step --mode boiling [--particles N]
+
+Builds the bench (``tpusph_torch.bench``), warms it up as ``run_bench``
+does, then runs one window of ``--steps`` steps under ``torch.profiler``
+and prints, as one JSON line: the window's wall time, the device time of
+each hand-written kernel (launches, total and mean ms), the device time of
+all other device work, the device idle share (wall time not covered by
+device work), and the window's rebuilds and phase-change insertions.
+Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import time
+
+import torch
+from torch.autograd import DeviceType
+
+from tpusph_torch.bench import build_bench_sim, card_info, run_bench
+
+# the hand-written kernels by their names in chip_smoke.py; the sweep
+# kernel's template argument is the Sweep enum (rho 0, cgrad 1, force 2)
+KERNEL_NAMES = ("rho", "cgrad", "force", "vapor")
+_SWEEP = re.compile(r"strip_sweep_kernel<(?:\(int\))?(\d)>")
+
+
+def _kernel_of(name: str) -> str | None:
+    if "strip_vapor_kernel" in name:
+        return "vapor"
+    m = _SWEEP.search(name)
+    return KERNEL_NAMES[int(m.group(1))] if m else None
+
+
+def profile_window(mode: str, n_particles: int, steps: int) -> dict:
+    sim = build_bench_sim(n_particles, mode=mode)
+    warm = run_bench(sim=sim, n_steps=steps, n_windows=1, mode=mode)
+    nb0 = sim.rebuilds
+    n0 = sim.natoms
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        sim.run(steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {short: dict(launches=0, ms=0.0) for short in KERNEL_NAMES}
+    other_ms = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue  # host ops; their kernels are device events of their own
+        dev_us = evt.device_time_total
+        short = _kernel_of(evt.key)
+        if short is None:
+            other_ms += dev_us / 1e3
+        else:
+            kernels[short]["launches"] += evt.count
+            kernels[short]["ms"] += dev_us / 1e3
+    for k in kernels.values():
+        k["mean_ms"] = k["ms"] / k["launches"] if k["launches"] else None
+    busy_ms = sum(k["ms"] for k in kernels.values()) + other_ms
+    name, limit = card_info()
+    return dict(mode=mode, particles=n0, steps=steps, wall_ms=1e3 * wall,
+                kernels=kernels, other_device_ms=other_ms,
+                device_busy_ms=busy_ms,
+                device_idle_share=max(0.0, 1.0 - busy_ms / (1e3 * wall)),
+                rebuilds=sim.rebuilds - nb0,
+                insertions=sim.natoms - n0,
+                strip_w=sim._strip_geom.w,
+                warmup_psps=warm["value"], device_name=name,
+                power_limit=limit)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mode", default="dynamic",
+                    choices=("uniform", "dynamic", "boiling"))
+    ap.add_argument("--particles", type=int, default=1_000_000)
+    ap.add_argument("--steps", type=int, default=50)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step: no CUDA device")
+    print(json.dumps(profile_window(args.mode, args.particles, args.steps)))
+
+
+if __name__ == "__main__":
+    main()

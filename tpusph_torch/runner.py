@@ -3,7 +3,8 @@ Verlet::run, src/verlet.cpp, SURVEY.md §3.2).
 
 PyTorch runs eagerly, so one step is a plain sequence of tensor ops and
 kernel launches: initial_integrate -> prepare (skin/2 trigger, rebuild,
-seam refresh) -> force stage -> final_integrate. The host syncs once per
+seam refresh) -> force stage -> final_integrate -> the end-of-step fix
+hook (fix phase_change), when one is set. The host syncs once per
 step for the rebuild trigger, and once more after each rebuild to read the
 overflow counter. CUDA graphs that remove both are later work.
 """
@@ -24,10 +25,14 @@ from tpusph_torch.state import Box, ParticleState
 class Runner:
     """Owns the step for one (spec, box, backend)."""
 
-    def __init__(self, spec: PhysicsSpec, box: Box, backend):
+    def __init__(self, spec: PhysicsSpec, box: Box, backend,
+                 end_of_step: Optional[Callable] = None):
         self.spec = spec
         self.box = box
         self.backend = backend
+        # Modify::end_of_step: hook(state, tabs, dt, istep, aux, backend,
+        # box) -> (state, aux), after final_integrate on non-frozen steps
+        self.end_of_step = end_of_step
         self.loop_time = 0.0
         self.ok_steps = 0
 
@@ -72,6 +77,10 @@ class Runner:
                 st = compute_forces(st, tabs, self.spec, self.backend,
                                     istep, aux1)
                 state = integrate.final_integrate(st, dt)
+                if self.end_of_step is not None:
+                    state, aux1 = self.end_of_step(state, tabs, dt, istep,
+                                                   aux1, self.backend,
+                                                   self.box)
                 aux = aux1
                 self.ok_steps += 1
             done += chunk

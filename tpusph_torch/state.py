@@ -42,6 +42,16 @@ class Box:
                                       device=device),
                    periodic=tuple(bool(p) for p in periodic))
 
+    def min_image(self, dx: torch.Tensor) -> torch.Tensor:
+        """Minimum-image displacement along the periodic directions; dx
+        has shape (..., 3). ``torch.round`` rounds half to even, as
+        ``jnp.round`` does."""
+        if not any(self.periodic):
+            return dx
+        wrapped = dx - self.length * torch.round(dx / self.length)
+        mask = torch.tensor(self.periodic, device=dx.device)
+        return torch.where(mask, wrapped, dx)
+
     def wrap(self, x: torch.Tensor) -> torch.Tensor:
         """Remap positions into the box along periodic directions
         (Domain::pbc). ``torch.remainder`` is the floor-mod that
