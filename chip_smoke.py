@@ -6,7 +6,8 @@
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. device  — a CUDA device must exist; prints nvidia-smi's name and
                power limit.
-  2. build   — compiles csrc/strip_sweeps.cu with nvcc (sm_90a) and loads it.
+  2. build   — compiles csrc/strip_sweeps.cu and csrc/column_sweeps.cu with
+               nvcc (sm_90a, one nvcc each, in parallel) and loads them.
   3. kernels — on the bench `dynamic` state after the initial strip build,
                runs each of the rho / colour-gradient / force sweeps through
                its CUDA kernel and its plain PyTorch version, checks the
@@ -35,9 +36,24 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                vapour bubble with fix phase_change (prob 1) for 20 steps,
                each on the GPU (kernels) and on the CPU (plain versions):
                the results must agree.
-Prints the two bench JSON lines, one JSON line of the kernels (launches on
-the boiling path; times and bounds from phase 8, the largest error of all
-comparisons), and as the last line {"ok": true, "device": {...}}.
+ 10. column  — on the bench `boiling` state under backend="pallas" (the
+               column kernel on the cell grid) after the initial sort, the
+               three column sweeps' kernels against their plain versions,
+               as in phase 3.
+ 11. column boiling — resets the counts, runs the `boiling` bench with
+               backend="pallas", and checks the three column kernels were
+               launched and no strip kernel was, plus phase 7's ledgers.
+ 12. column  — phase 10 again on the layout after the column path, and the
+               cell-grid vapor query's time per firing.
+ 13. column slice — the 12^3 bubble on the column kernel, GPU against CPU.
+ 14. ladder  — a phase-change run whose periodic column axis is too short
+               to strip takes the column kernel under "auto"; escalated
+               floors abandon the strip for the column kernel, and three
+               calm rebuilds later the strip comes back.
+Prints the three bench JSON lines, one JSON line of the kernels (launches
+on the boiling paths; times and bounds from phases 8 and 12, the largest
+error of all comparisons), and as the last line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -53,12 +69,18 @@ import time
 # 2e-5). The vapor sweep forms rsq in the plain version's order with
 # round-to-nearest intrinsics: it must agree exactly.
 KERNEL_RTOL = {"rho": 2e-5, "cgrad": 2e-4, "force": 2e-4, "vapor": 0.0}
-SOURCE = "tpusph_torch/csrc/strip_sweeps.cu"
-REPLACES = {"rho": "tpusph/ops/strip_pair.py:1106",
-            "cgrad": "tpusph/ops/strip_pair.py:1106",
-            "force": "tpusph/ops/strip_pair.py:1106",
-            "vapor": "tpusph/ops/strip_pair.py:1251"}
+SOURCES = {"strip": "tpusph_torch/csrc/strip_sweeps.cu",
+           "column": "tpusph_torch/csrc/column_sweeps.cu"}
+REPLACES = {"strip_rho": "tpusph/ops/strip_pair.py:1106",
+            "strip_cgrad": "tpusph/ops/strip_pair.py:1106",
+            "strip_force": "tpusph/ops/strip_pair.py:1106",
+            "strip_vapor": "tpusph/ops/strip_pair.py:1251",
+            "column_rho": "tpusph/ops/pallas_pair.py:233",
+            "column_cgrad": "tpusph/ops/pallas_pair.py:233",
+            "column_force": "tpusph/ops/pallas_pair.py:233"}
 KERNELS = ("rho", "cgrad", "force", "vapor")
+STRIP = tuple(f"strip_{k}" for k in KERNELS)
+COLUMN = ("column_rho", "column_cgrad", "column_force")
 
 # the least time the card could take: the larger of the bytes moved over
 # 3.35 TB/s and the float32 operations over 67 TFLOP/s (no tensor cores)
@@ -138,16 +160,37 @@ def strip_state(sim, after_run):
     return backend, state, aux, sim.tables.stacked(sim.device)
 
 
-def timed(name, run_kernel, run_plain, n_rows, ops, reps):
-    """Kernel and plain times by CUDA events and the bound, printed."""
+def timed(name, run_kernel, run_plain, n_rows, ops, reps, kind=None):
+    """Kernel and plain times by CUDA events and the bound (of the sweep
+    ``kind``, by default ``name``), printed."""
     ms = cuda_ms(run_kernel, reps)
     plain_ms = cuda_ms(run_plain, 1)
-    bound_ms, bound_by = bound(name, n_rows, ops)
+    bound_ms, bound_by = bound(kind or name, n_rows, ops)
     print(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by}), roofline share "
           f"{bound_ms / ms:.2%}")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
+
+
+def compare_rows(label, sweep, out_k, out_p, alive, rows):
+    """Each output row of a kernel against its plain version on the alive
+    slots, within the sweep's tolerance of the row's largest magnitude;
+    returns the largest absolute differences, printed."""
+    import torch
+    torch.cuda.synchronize()
+    errs = []
+    for r in rows:
+        a, b = out_k[r][alive], out_p[r][alive]
+        assert torch.isfinite(a).all(), f"{label} row {r}: non-finite"
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        errs.append(err)
+        print(f"  {label} row {r}: max_abs_err {err:.3e} max|plain| "
+              f"{scale:.3e} rel {err / max(scale, 1e-30):.3e} (tolerance "
+              f"{KERNEL_RTOL[sweep]:.0e})")
+        assert err <= KERNEL_RTOL[sweep] * scale, (label, r, err, scale)
+    return errs
 
 
 def hold_to_plain(sim, names, after_run=False, reps=10):
@@ -159,7 +202,7 @@ def hold_to_plain(sim, names, after_run=False, reps=10):
     import torch
     from tpusph_torch.ops import strip_pair
     from tpusph_torch.ops.band_pair import pack_fields
-    from tpusph_torch.ops.pallas_pair import (
+    from tpusph_torch.ops.rows import (
         OCGX, OCGY, ODE, ODRHO, OFX, OFY, OFZ, ORHO, RCGX, RCGZ, RMIX, RRHO)
 
     backend, state, aux, tabs = strip_state(sim, after_run)
@@ -199,18 +242,7 @@ def hold_to_plain(sim, names, after_run=False, reps=10):
 
         out_k = run_kernel()
         out_p = run_plain()
-        torch.cuda.synchronize()
-        errs = []
-        for r in rows[sweep]:
-            a, b = out_k[r][alive], out_p[r][alive]
-            assert torch.isfinite(a).all(), f"{sweep} row {r}: non-finite"
-            err = float((a - b).abs().max())
-            scale = float(b.abs().max())
-            errs.append(err)
-            print(f"  {sweep} row {r}: max_abs_err {err:.3e} max|plain| "
-                  f"{scale:.3e} rel {err / max(scale, 1e-30):.3e} "
-                  f"(tolerance {KERNEL_RTOL[sweep]:.0e})")
-            assert err <= KERNEL_RTOL[sweep] * scale, (sweep, r, err, scale)
+        errs = compare_rows(sweep, sweep, out_k, out_p, alive, rows[sweep])
         report[sweep] = dict(max_abs_err=max(errs), **timed(
             sweep, run_kernel, run_plain, n_own, ops[sweep], reps))
         if sweep == "rho":
@@ -232,7 +264,7 @@ def vapor_to_plain(sim, backend, state, aux, own, reps):
     import torch
     from tpusph_torch.ops import strip_pair
     from tpusph_torch.ops.band_pair import pack_fields
-    from tpusph_torch.ops.pallas_pair import (
+    from tpusph_torch.ops.rows import (
         OCGX, OCGY, OFX, OFY, ORHO, RSLOT, RTYPE)
 
     cfg = sim.phase_change_config
@@ -292,22 +324,30 @@ def owned_totals(sim):
 
 
 def reset_counts():
-    from tpusph_torch.ops import strip_pair
-    for k in strip_pair.KERNELS.values():
+    from tpusph_torch.ops import all_kernels
+    for k in all_kernels().values():
         k.launches = 0
 
 
 def read_counts(names):
-    from tpusph_torch.ops import strip_pair
-    launches = {s: strip_pair.KERNELS[s].launches for s in names}
-    print(f"  launches on the main path: {launches}")
+    """The launch counts of the kernels ``names`` since the last reset; each
+    must have launched, and no other kernel may have."""
+    from tpusph_torch.ops import all_kernels
+    kernels = all_kernels()
+    launches = {s: kernels[s].launches for s in names}
+    others = {s: k.launches for s, k in kernels.items() if s not in names}
+    print(f"  launches on the main path: {launches}; other kernels: "
+          f"{others}")
     for s, n in launches.items():
         assert n > 0, f"{s} kernel never launched on the main path"
+    for s, n in others.items():
+        assert n == 0, f"{s} kernel launched off its path ({n})"
     return launches
 
 
-def phase_main(sim, mode, steps, windows):
-    """One bench main path, ``mode`` "dynamic" or "boiling"; returns
+def phase_main(sim, mode, steps, windows, backend="auto"):
+    """One bench main path, ``mode`` "dynamic" or "boiling", on
+    ``backend`` ("auto": the strip; "pallas": the column kernel); returns
     (launches, bench line)."""
     import numpy as np
     import torch
@@ -316,9 +356,13 @@ def phase_main(sim, mode, steps, windows):
     sim._build_state()
     mass0, p0, mv0, liq0, nvap0 = owned_totals(sim)
     n0 = sim.natoms
-    names = KERNELS if mode == "boiling" else KERNELS[:3]
+    if backend == "pallas":
+        names = COLUMN
+    else:
+        names = STRIP if mode == "boiling" else STRIP[:3]
     reset_counts()
-    bench = run_bench(sim=sim, n_steps=steps, n_windows=windows, mode=mode)
+    bench = run_bench(sim=sim, n_steps=steps, n_windows=windows, mode=mode,
+                      backend=backend)
     launches = read_counts(names)
     assert int(sim.aux.overflow.sum()) == 0, "overflow at the end"
     st = sim.state
@@ -354,7 +398,7 @@ def phase_slices():
     CPU: the 16^3 `dynamic` bench (tests/test_torch_slice.py) and the 12^3
     boiling bubble (tests/test_torch_phase_change.py)."""
     import numpy as np
-    from tpusph_torch.bench import build_bench_sim, build_bubble_sim
+    from tpusph_torch.bench import build_bench_sim
 
     sims = {}
     for dev in ("cuda", "cpu"):
@@ -372,15 +416,26 @@ def phase_slices():
         print(f"  dynamic slice {field}: max |gpu - cpu| {err:.3e} "
               "(bound 5e-5)")
         assert err <= 5e-5, (field, err)
+    bubble_slice("auto")
+
+
+def bubble_slice(backend):
+    """The 12^3 boiling bubble (prob 1) for 20 steps on ``backend``, on the
+    GPU against the CPU: the same events, sums, originals and inserted
+    positions."""
+    import numpy as np
+    from tpusph_torch.bench import build_bubble_sim
 
     sims = {}
     for dev in ("cuda", "cpu"):
-        sim = build_bubble_sim(dev)
+        sim = build_bubble_sim(dev, backend=backend)
         n0 = sim.natoms
         sim.run(20)
         sims[dev] = sim
     a, b = sims["cpu"], sims["cuda"]
-    print(f"  boiling slice: insertions gpu {b.natoms - n0}, cpu "
+    kind = type(b._runner.backend).__name__
+    assert kind == type(a._runner.backend).__name__
+    print(f"  boiling slice on {kind}: insertions gpu {b.natoms - n0}, cpu "
           f"{a.natoms - n0}")
     assert a.natoms == b.natoms and a.natoms > n0
     for field in ("rmass", "e"):
@@ -414,6 +469,191 @@ def phase_slices():
     assert err <= 1e-5, err
 
 
+def column_state(sim, after_run):
+    """(backend, state, aux, tables) of the cell grid the column sweeps
+    see, as ``strip_state`` for the strip layout."""
+    if after_run:
+        backend = sim._runner.backend
+        state, aux, _ = backend.prepare(sim.state, sim.aux, sim.step_count,
+                                        sim.box)
+    else:
+        backend = sim._ensure_runner().backend
+        sim._build_state()
+        state, aux = backend.init_aux(sim.state, sim.box)
+    return backend, state, aux, sim.tables.stacked(sim.device)
+
+
+def column_pairs(fld, cg, cut2, keep=None):
+    """(i, j) pairs with both types alive and 1e-12 < rsq < cut2 in the
+    column sweeps' cell windows (every alive row of the cell grid is an
+    owned particle); ``keep(pi, pj)`` filters them further."""
+    from tpusph_torch.ops import pallas_pair
+    ncells = cg.ncols * cg.ncz
+    reach = pallas_pair.live_reach(fld, cg)
+    cstep = max(1, pallas_pair._PLAIN_CHUNK // (reach * reach * 3
+                                                * cg.nnbr))
+    total = 0
+    for c0 in range(0, ncells, cstep):
+        pi, pj, _ = pallas_pair._column_pairs(
+            fld, cg, c0, min(c0 + cstep, ncells), cut2, reach)
+        total += pi.numel() if keep is None else int(keep(pi, pj).sum())
+    return total
+
+
+def hold_column_to_plain(sim, after_run=False, reps=10):
+    """Each column kernel against its plain version on the cell grid of
+    ``column_state``, fed as ``PallasBackend.force_stage`` feeds them (rho
+    patched before cgrad, cg before force); after a main path also the
+    cell-grid vapor query's time per firing. Returns {name: report}."""
+    import torch
+    from tpusph_torch.ops import pallas_pair
+    from tpusph_torch.ops.rows import (
+        OCGX, OCGY, ODE, ODRHO, OFX, OFY, OFZ, ORHO, RCGX, RCGZ, RM, RRHO,
+        RTYPE)
+
+    backend, state, aux, tabs = column_state(sim, after_run)
+    cg, spec = backend.colgrid, sim.spec
+    fld, _, _ = pallas_pair.pack_dense(state, aux, cg)
+    alive = fld[RTYPE] > 0.5
+    n_own = int(alive.sum())
+    print(f"  cell grid {cg.ncols} columns x {cg.ncz} cells, cap {cg.cap}, "
+          f"{cg.n_slots} slots, {n_own} particles, overflow "
+          f"{int(aux.overflow.sum())}")
+    assert int(aux.overflow.sum()) == 0
+    cut2 = tabs.cutmax2["force"]
+    typ = fld[RTYPE]
+    npairs = column_pairs(fld, cg, cut2)
+    # the colour gradient is summed over pairs of unlike types only
+    mixed = column_pairs(fld, cg, cut2, keep=lambda pi, pj: typ[pi] != typ[pj])
+    print(f"  live pairs {npairs} ({npairs / n_own:.1f} per particle), of "
+          f"unlike types {mixed}")
+    rows = {"rho": (ORHO,), "cgrad": (OCGX, OCGY, ODE),
+            "force": (OFX, OFY, OFZ, ODRHO, ODE)}
+    report = {}
+    for sweep in ("rho", "cgrad", "force"):
+        kern = pallas_pair.KERNELS[sweep]
+
+        def run_kernel():
+            return kern(fld, tabs, cg, spec)
+
+        def run_plain():
+            return pallas_pair.plain_column_sweep(sweep, fld, tabs, cg, spec)
+
+        out_k = run_kernel()
+        out_p = run_plain()
+        errs = compare_rows(f"column {sweep}", sweep, out_k, out_p, alive,
+                            rows[sweep])
+        if sweep == "rho":
+            ops = PAIR_OPS["rho"] * npairs
+        elif sweep == "cgrad":
+            ops = PAIR_OPS["cgrad"] * mixed
+        else:
+            # the capillary terms need the pairs where either side carries
+            # a colour gradient
+            cgn = (fld[RCGX:RCGZ + 1] != 0).any(0)
+            st_pairs = column_pairs(fld, cg, cut2,
+                                    keep=lambda pi, pj: cgn[pi] | cgn[pj])
+            print(f"  pairs with a colour gradient on either side "
+                  f"{st_pairs}")
+            ops = PAIR_OPS["force"] * npairs + PAIR_OPS["force_st"] * st_pairs
+        report[sweep] = dict(max_abs_err=max(errs), **timed(
+            f"column {sweep}", run_kernel, run_plain, n_own, ops, reps,
+            kind=sweep))
+        if sweep == "rho":
+            total = out_p[ORHO] * fld[RM] if spec.rhosum_nd else out_p[ORHO]
+            fld[RRHO] = torch.where(alive, total, fld[RRHO])
+        elif sweep == "cgrad":
+            fld[RCGX:RCGZ + 1] = out_p[[OCGX, OCGY, ODE]]
+    if after_run and sim.phase_change_config is not None:
+        cfg = sim.phase_change_config
+        ms = cuda_ms(lambda: backend.vapor_neighbor(
+            state, sim.box, cfg.vapor_type, cfg.cutoff, aux), 3)
+        nvap = int((state.alive & (state.type == cfg.vapor_type)).sum())
+        print(f"  cell-grid vapor query (plain PyTorch): {ms:.3f} ms per "
+              f"firing, {nvap} vapour particles")
+        report["vapor_query_ms"] = ms
+    return report
+
+
+def retry_sim(device):
+    """tests/test_torch_margin_decay.py's retry system: a 6 x 6 x 36
+    lattice, heat conduction, a rebuild and an observation every 2 steps,
+    fix phase_change on (no vapour type present: no event fires, but the
+    fallback is the column kernel), and margin floors so high that no
+    strip geometry fits."""
+    import numpy as np
+    from tpusph_torch.api import Simulation
+    from tpusph_torch.ops.phase_change import PhaseChangeConfig
+
+    sim = Simulation(dim=3, screen=False, device=device)
+    sim.create_box([0, 0, 0], [6.0, 6.0, 36.0], periodic=(True,) * 3,
+                   ntypes=1)
+    ax = np.arange(6, dtype=np.float32)
+    az = np.arange(36, dtype=np.float32)
+    g = np.stack(np.meshgrid(ax, ax, az, indexing="ij"), -1).reshape(-1, 3)
+    sim.add_particles(g, np.ones(len(g), np.int32), rho=1.0,
+                      e=np.where(g[:, 0] < 3.0, 1.5, 1.0).astype(np.float32),
+                      cv=1.0, rmass=1.0)
+    sim.pair_heatconduction()
+    sim.tables.set_heatconduction(1, 1, d=0.5, h=2.4)
+    sim.neighbor_skin = 0.4
+    sim.dt = 1e-3
+    sim.thermo(2)
+    sim.reneigh_every = 2
+    sim._strip_extra = (4096, 4096)
+    sim.configure_phase_change(PhaseChangeConfig(
+        t_threshold=2.0, latent=1.0, dm=1e-3, liquid_type=1, vapor_type=2,
+        every=2, cutoff=2.4))
+    return sim
+
+
+def phase_ladder():
+    """The backend ladder on the card: a phase-change bubble whose periodic
+    z axis (10 planes, 2.5 < 4 x (cutoff + skin)) cannot strip runs on the
+    column kernel under "auto"; and the retry system abandons the strip
+    for the column kernel, then comes back to it after three calm
+    rebuilds, with the CPU run's trajectory."""
+    import warnings
+    import numpy as np
+    from tpusph_torch.bench import build_bubble_sim
+    from tpusph_torch.ops.pallas_pair import PallasBackend
+    from tpusph_torch.ops.strip_pair import StripBackend
+
+    reset_counts()
+    sim = build_bubble_sim("cuda", backend="auto", nz=10)
+    n0 = sim.natoms
+    sim.run(10)
+    print(f"  short column axis: {type(sim._runner.backend).__name__}, "
+          f"{sim.natoms - n0} insertions in 10 steps")
+    assert isinstance(sim._runner.backend, PallasBackend)
+    assert sim.natoms > n0
+    # heat conduction alone: the force sweep is the bubble's only sweep
+    read_counts(("column_force",))
+
+    es = {}
+    for dev in ("cuda", "cpu"):
+        sim = retry_sim(dev)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            sim.run(2)
+        assert any("abandoned" in str(w.message) for w in caught)
+        first = type(sim._runner.backend).__name__
+        assert isinstance(sim._runner.backend, PallasBackend)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            sim.run(28)
+        print(f"  retry on {dev}: {first} -> "
+              f"{type(sim._runner.backend).__name__}, extra "
+              f"{sim._strip_extra}, steps {sim.step_count}")
+        assert isinstance(sim._runner.backend, StripBackend)
+        assert sim._strip_extra == (0, 0) and sim.step_count == 30
+        es[dev] = sim.get("e")
+        assert np.isfinite(es[dev]).all()
+    err = float(np.abs(es["cuda"] - es["cpu"]).max())
+    print(f"  retry e: max |gpu - cpu| {err:.3e} (bound 5e-6)")
+    assert err <= 5e-6, err
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--particles", type=int, default=1_000_000)
@@ -436,48 +676,76 @@ def main() -> int:
         print(f"  ({time.perf_counter() - t0:.1f} s)")
         return out
 
-    print("[1/9] device")
+    print("[1/14] device")
     name, limit = card_info()
     print(f"{name}, {limit}")
     print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
           f"devices {torch.cuda.device_count()}")
 
-    lib = phase("[2/9] build", cuda_build.load)
+    lib = phase("[2/14] build", cuda_build.load)
     print(lib.ptxas_log.strip())
 
     n = args.particles
     sim = build_bench_sim(n, mode="dynamic", device="cuda")
-    reports = [phase(f"[3/9] dynamic: sweeps vs plain on the initial "
+    reports = [phase(f"[3/14] dynamic: sweeps vs plain on the initial "
                      f"layout at {n} particles", hold_to_plain, sim,
                      KERNELS[:3])]
-    _, dynamic = phase("[4/9] dynamic main path: run_bench", phase_main,
+    _, dynamic = phase("[4/14] dynamic main path: run_bench", phase_main,
                        sim, "dynamic", args.steps, args.windows)
-    reports.append(phase("[5/9] dynamic: sweeps vs plain on the layout "
+    reports.append(phase("[5/14] dynamic: sweeps vs plain on the layout "
                          "after the main path", hold_to_plain, sim,
                          KERNELS[:3], True))
     del sim
     sim = build_bench_sim(n, mode="boiling", device="cuda")
-    reports.append(phase(f"[6/9] boiling: all four kernels vs plain on the "
+    reports.append(phase(f"[6/14] boiling: all four kernels vs plain on the "
                          f"initial layout at {n} particles", hold_to_plain,
                          sim, KERNELS))
-    launches, boiling = phase("[7/9] boiling main path: run_bench",
+    launches, boiling = phase("[7/14] boiling main path: run_bench",
                               phase_main, sim, "boiling", args.steps,
                               args.windows)
     # the kernels' times and bounds in the JSON line: the layout the
     # boiling path's timed windows launch them on
-    last = phase("[8/9] boiling: all four kernels vs plain on the layout "
+    last = phase("[8/14] boiling: all four kernels vs plain on the layout "
                  "after the main path", hold_to_plain, sim, KERNELS, True)
     reports.append(last)
     del sim
-    phase("[9/9] slices: GPU kernels vs CPU plain versions", phase_slices)
+    phase("[9/14] slices: GPU kernels vs CPU plain versions", phase_slices)
 
-    kernels = [dict(name=f"strip_{s}_sweep", route="cuda", source=SOURCE,
-                    replaces=REPLACES[s], launches=launches[s],
-                    library_ms=None, **{**last[s], "max_abs_err": max(
-                        r[s]["max_abs_err"] for r in reports if s in r)})
-               for s in KERNELS]
+    sim = build_bench_sim(n, mode="boiling", device="cuda", backend="pallas")
+    col_reports = [phase(f"[10/14] column: the three column kernels vs "
+                         f"plain on the initial cell grid at {n} particles",
+                         hold_column_to_plain, sim)]
+    col_launches, column = phase(
+        "[11/14] column boiling main path: run_bench(backend=\"pallas\")",
+        phase_main, sim, "boiling", args.steps, args.windows, "pallas")
+    col_last = phase("[12/14] column: kernels vs plain on the cell grid "
+                     "after the main path", hold_column_to_plain, sim, True)
+    col_reports.append(col_last)
+    column["vapor_query_ms"] = col_last["vapor_query_ms"]
+    del sim
+    phase("[13/14] column slice: GPU kernels vs CPU plain versions",
+          bubble_slice, "pallas")
+    phase("[14/14] ladder: cannot strip -> column kernel; abandon -> "
+          "column -> strip retry", phase_ladder)
+
+    kernels = []
+    for s in KERNELS:
+        key = f"strip_{s}"
+        kernels.append(dict(
+            name=f"{key}_sweep", route="cuda", source=SOURCES["strip"],
+            replaces=REPLACES[key], launches=launches[key], library_ms=None,
+            **{**last[s], "max_abs_err": max(
+                r[s]["max_abs_err"] for r in reports if s in r)}))
+    for s in ("rho", "cgrad", "force"):
+        key = f"column_{s}"
+        kernels.append(dict(
+            name=f"{key}_sweep", route="cuda", source=SOURCES["column"],
+            replaces=REPLACES[key], launches=col_launches[key],
+            library_ms=None, **{**col_last[s], "max_abs_err": max(
+                r[s]["max_abs_err"] for r in col_reports)}))
     print(json.dumps(dynamic))
     print(json.dumps(boiling))
+    print(json.dumps(column))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

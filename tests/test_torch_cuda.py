@@ -1,11 +1,14 @@
-"""The CUDA strip sweeps (tpusph_torch/csrc/strip_sweeps.cu) against their
-plain PyTorch versions, on the card, for every physics branch the kernels
-carry: Tait / Morris / ideal gas / LJ, continuity, heat conduction with and
-without T_sat pinning, CSF, the virial, rhosum in both forms, all four
-smoothing kernels, 2D and 3D, periodic and not. The vapor sweep (the fix
-phase_change interface query) is held to its plain version exactly: count,
-both slots and both rsq, on exact lattices (rsq ties) and jittered ones,
-with seam-ghost rows where the column axis is periodic.
+"""The CUDA strip sweeps (tpusph_torch/csrc/strip_sweeps.cu) and column
+sweeps (tpusph_torch/csrc/column_sweeps.cu) against their plain PyTorch
+versions, on the card, for every physics branch the kernels carry: Tait /
+Morris / ideal gas / LJ, continuity, heat conduction with and without
+T_sat pinning, CSF, the virial, rhosum in both forms, scalar-folded tables
+with a shared cutoff, all four smoothing kernels, 2D and 3D, periodic and
+not. The strip vapor sweep (the fix phase_change interface query) is held
+to its plain version exactly: count, both slots and both rsq, on exact
+lattices (rsq ties) and jittered ones, with seam-ghost rows where the
+column axis is periodic. A CUDA tensor never takes a plain version: every
+wrapper call moves its launch counter.
 
 Needs an NVIDIA GPU and nvcc (marker ``cuda``); elsewhere every test skips.
 tests/conftest.py imports jax, which this file does not need, so on a
@@ -22,11 +25,12 @@ import numpy as np
 import pytest
 import torch
 
-from tpusph_torch import kernels
-from tpusph_torch.ops import strip_pair
+from tpusph_torch import grid, kernels
+from tpusph_torch.ops import pallas_pair, strip_pair
 from tpusph_torch.ops.band_pair import pack_fields
-from tpusph_torch.ops.pallas_pair import (
-    OCGX, OCGY, ODE, ODRHO, OFX, OFY, OFZ, ORHO, RCGX, RCGZ, RRHO, RSLOT)
+from tpusph_torch.ops.rows import (
+    OCGX, OCGY, ODE, ODRHO, OFX, OFY, OFZ, ORHO, RCGX, RCGZ, RM, RRHO, RSLOT,
+    RTYPE)
 from tpusph_torch.params import PairTables, PhysicsSpec
 from tpusph_torch.state import Box, state_from_arrays
 
@@ -46,6 +50,14 @@ SPECS = {
     "heatpc_wendland_st": dict(kernel=kernels.WENDLAND_C2, tait=True,
                                heat_phasechange=True, surface_tension=True,
                                rhosum_every=1, virial=True),
+    # uniform tables folded to scalars, one shared active cutoff
+    "bench_folded": dict(kernel=kernels.LUCY, rhosum_every=1, rhosum_nd=True,
+                         tait=True, heatconduction=True,
+                         surface_tension=True, shared_wfd=True,
+                         scalar_tables=("c0", "cut", "cut_heat", "cut_rho",
+                                        "cut_tension", "gas_gamma",
+                                        "heat_D", "rho0", "sigma",
+                                        "tait_b", "visc")),
 }
 
 
@@ -56,9 +68,11 @@ def device():
     return torch.device("cuda")
 
 
-def lattice(dim, nside, periodic, seed, device, dx=0.5, jitter=True):
+def lattice(dim, nside, periodic, seed, device, dx=0.5, jitter=True,
+            uniform=False):
     """A jittered (or exact) two-type lattice with random v, rho, e (the
-    JAX tests' lattice_system, built here with numpy alone)."""
+    JAX tests' lattice_system, built here with numpy alone); ``uniform``
+    makes every pair table uniform over the two types with one cutoff."""
     rng = np.random.default_rng(seed)
     ax = [np.arange(nside) * dx] * dim
     pts = np.stack(np.meshgrid(*ax, indexing="ij"), -1).reshape(-1, dim)
@@ -87,7 +101,22 @@ def lattice(dim, nside, periodic, seed, device, dx=0.5, jitter=True):
         tables.set_heatconduction(i, j, d=0.15, h=0.9 * h)
     tables.set_heatconduction(1, 2, d=0.15, h=0.9 * h, tsat=1.1)
     tables.set_surfacetension(1, 2, sigma=0.8, h=h)
+    if uniform:
+        for i, j in ((1, 2), (1, 1), (2, 2)):
+            tables.set_heatconduction(i, j, d=0.15, h=h)
+            tables.set_surfacetension(i, j, sigma=0.8, h=h)
     return st, box, tables
+
+
+def check_rows(sweep, out_k, out_p, alive):
+    """Every output row of the sweep within its tolerance of the plain
+    version on the alive slots, and finite."""
+    for r in ROWS[sweep]:
+        a, b = out_k[r][alive], out_p[r][alive]
+        assert torch.isfinite(a).all(), (sweep, r)
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        assert err <= RTOL[sweep] * scale, (sweep, r, err, scale)
 
 
 @pytest.mark.parametrize("name,dim,periodic", [
@@ -118,12 +147,7 @@ def test_kernels_match_plain_versions(device, name, dim, periodic):
         assert kern.launches == n0 + 1
         out_p = strip_pair.plain_sweep(sweep, fld, tabs, backend.win,
                                        aux.delta, geom, spec)
-        for r in ROWS[sweep]:
-            a, b = out_k[r][alive], out_p[r][alive]
-            assert torch.isfinite(a).all(), (sweep, r)
-            err = float((a - b).abs().max())
-            scale = float(b.abs().max())
-            assert err <= RTOL[sweep] * scale, (sweep, r, err, scale)
+        check_rows(sweep, out_k, out_p, alive)
         # feed the next sweep as the force stage does
         if sweep == "rho":
             total = out_p[ORHO] * st.rmass if spec.rhosum_nd else out_p[ORHO]
@@ -185,3 +209,66 @@ def test_vapor_kernel_matches_plain_exactly(device, dim, periodic, jitter):
     assert bool((out_p[ORHO][alive] > 0).any())
     for r in (ORHO, OCGX, OCGY, OFX, OFY):
         assert torch.equal(out_k[r][alive], out_p[r][alive]), r
+
+
+def column_layout(dim, periodic, seed, device, name="bench"):
+    st, box, tables = lattice(dim, 12 if dim == 3 else 40, periodic, seed,
+                              device, uniform=name == "bench_folded")
+    geom = grid.make_geometry(box, tables.max_cut(), dim, skin=0.2)
+    backend = pallas_pair.PallasBackend(geom, box, ntypes=2, device=device)
+    st, aux = backend.init_aux(st, box)
+    assert int(aux.overflow.sum()) == 0
+    return backend, st, aux, tables
+
+
+@pytest.mark.parametrize("name,dim,periodic", [
+    ("bench", 3, True), ("bench", 3, False), ("morris_virial", 3, True),
+    ("idealgas_cubic", 3, False), ("lj_quintic", 3, True),
+    ("heatpc_wendland_st", 3, True), ("bench_folded", 3, True),
+    ("bench", 2, True), ("heatpc_wendland_st", 2, False),
+])
+def test_column_kernels_match_plain_versions(device, name, dim, periodic):
+    backend, st, aux, tables = column_layout(dim, periodic, dim + 17, device,
+                                             name)
+    cg = backend.colgrid
+    spec = PhysicsSpec(dim=dim, **SPECS[name])
+    tabs = tables.stacked(device)
+    fld, _, _ = pallas_pair.pack_dense(st, aux, cg)
+    alive = fld[RTYPE] > 0.5
+    for sweep in ("rho", "cgrad", "force"):
+        kern = pallas_pair.KERNELS[sweep]
+        n0 = kern.launches
+        out_k = kern(fld, tabs, cg, spec)
+        torch.cuda.synchronize()
+        assert kern.launches == n0 + 1
+        out_p = pallas_pair.plain_column_sweep(sweep, fld, tabs, cg, spec)
+        check_rows(sweep, out_k, out_p, alive)
+        # empty and dead slots are written as zeros
+        assert float(out_k[:, ~alive].abs().max()) == 0.0
+        # feed the next sweep as the force stage does
+        if sweep == "rho":
+            total = out_p[ORHO] * fld[RM] if spec.rhosum_nd else out_p[ORHO]
+            fld[RRHO] = torch.where(alive, total, fld[RRHO])
+        elif sweep == "cgrad":
+            fld[RCGX:RCGZ + 1] = out_p[[OCGX, OCGY, ODE]]
+
+
+def test_column_force_stage_on_card_matches_cpu(device):
+    """One PallasBackend.force_stage of the bench spec: the kernels on the
+    card against the plain versions on the CPU, every launch counted."""
+    outs = {}
+    for dev in (device, torch.device("cpu")):
+        backend, st, aux, tables = column_layout(3, True, 5, dev)
+        spec = PhysicsSpec(dim=3, **SPECS["bench"])
+        n0 = {k: w.launches for k, w in pallas_pair.KERNELS.items()}
+        outs[dev.type] = backend.force_stage(st, tables.stacked(dev), spec,
+                                             aux, istep=0)
+        moved = {k: w.launches - n0[k]
+                 for k, w in pallas_pair.KERNELS.items()}
+        assert moved == {k: int(dev.type == "cuda") for k in moved}, moved
+    for field, rtol in (("rho", 2e-5), ("f", 2e-4), ("drho", 2e-4),
+                        ("de", 2e-4)):
+        a = getattr(outs["cpu"], field)
+        b = getattr(outs["cuda"], field).cpu()
+        err = float((a - b).abs().max())
+        assert err <= rtol * float(a.abs().max()), (field, err)

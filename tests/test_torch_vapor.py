@@ -26,7 +26,7 @@ from tpusph.state import Box as JBox
 
 from tpusph_torch.ops import strip_pair
 from tpusph_torch.ops.band_pair import pack_fields
-from tpusph_torch.ops.pallas_pair import OCGX, OCGY, ORHO, RSLOT, RTYPE
+from tpusph_torch.ops.rows import OCGX, OCGY, ORHO, RSLOT, RTYPE
 from tpusph_torch.state import Box
 
 from test_pallas import lattice_system

@@ -9,10 +9,12 @@ measured particle distribution, and steps.
 Ported: create_box, add_particles, the pair_* styles of the bench
 (rhosum, taitwater, heatconduction with the /phasechange variant,
 surfacetension), tables, thermo, the end-of-step hook registry and
-configure_phase_change (fix phase_change), run (with the violation
-re-choice and the margin decay), get, natoms. Not ported yet (ROADMAP):
-the cellgrid/band/column backends and with them the strip retry, the
-script layer, dumps and restarts.
+configure_phase_change (fix phase_change), the backend ladder in its TPU
+form (strip, then the column kernel for a phase-change run that cannot
+strip), run (with the violation re-choice, the margin decay and the strip
+retry after an abandoned geometry), get, natoms. Not ported yet (ROADMAP):
+the dense, cellgrid-sweep and band backends, the script layer, dumps and
+restarts.
 
 Entry points run on the card: ``Simulation()`` takes the CUDA device and
 raises where there is none; the CPU is used only when asked for with
@@ -22,16 +24,20 @@ raises where there is none; the CPU is used only when asked for with
 from __future__ import annotations
 
 import dataclasses
+import math
+import warnings
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from tpusph_torch import grid as gridlib
 from tpusph_torch.io.thermo import ThermoWriter
-from tpusph_torch.ops.pallas_pair import TABLES_1D, TABLES_2D
+from tpusph_torch.ops.pallas_pair import PallasBackend
 from tpusph_torch.ops.phase_change import (
     PhaseChangeConfig, make_end_of_step_hook,
 )
+from tpusph_torch.ops.rows import TABLES_1D, TABLES_2D
 from tpusph_torch.ops.strip_pair import (
     StripBackend, choose_strip_geometry, pad_window_to_vreg,
 )
@@ -41,19 +47,23 @@ from tpusph_torch.state import (
     Box, ParticleState, state_from_arrays, state_to_numpy,
 )
 
-_FALLBACK_ITEM = ("the fallback backends (ROADMAP Queue 1 item 11: cellgrid, "
-                  "then band/column kernels, Queue 2 items 5-6)")
+# the ports that the backend ladder still waits for
+_BAND_ITEM = "the band backend (ROADMAP Queue 2 item 5)"
+_CELLGRID_ITEM = "the cell grid's XLA sweeps (ROADMAP Queue 1 item 11)"
+_DENSE_ITEM = "the dense O(N^2) backend (ROADMAP Queue 1 items 3-4)"
 
 
 class CapacityOverflow(RuntimeError):
-    """A rebuild counted dropped rows or a rank window that no longer
-    covers cutoff+skin (the 'dangerous builds' analog, SURVEY §5.2)."""
+    """A rebuild counted dropped rows (a strip column or seam band, or a
+    cell beyond its capacity) or a rank window that no longer covers
+    cutoff+skin (the 'dangerous builds' analog, SURVEY §5.2)."""
 
 
 class MarginDecay(RuntimeError):
     """Control flow: the strip margin floor shows measured, persistent
-    slack, and a leaner geometry re-choice is due (``run`` continues as
-    after a violation, with LOWER floors)."""
+    slack, or an abandoned strip is due for a retry, and a geometry
+    re-choice follows (``run`` continues as after a violation, with LOWER
+    floors)."""
 
 
 def _round_up(n: int, m: int) -> int:
@@ -92,6 +102,11 @@ class Simulation:
         self.step_count: int = 0
         self.time_acc: float = 0.0
         self.capacity_pad: int = 0      # extra dead slots (phase-change pool)
+        # "auto" (strip, then the column kernel for a phase-change run that
+        # cannot strip), "strip" (the same ladder) or "pallas" (the column
+        # kernel on the cell grid)
+        self.backend_name: str = "auto"
+        self.cell_cap: Optional[int] = None  # None = measured occupancy
         self.neighbor_skin: Optional[float] = None  # `neighbor <skin> bin`
         self.reneigh_every: int = 0     # `neigh_modify every N` (0 = check)
         self.log_path = log
@@ -126,6 +141,16 @@ class Simulation:
         self._decay_blocked = False
         self._decay_prev_w = None
         self._decay_nbuilds = None
+        # the strip retry after an abandoned geometry
+        self._strip_abandoned = False
+        self._strip_retry_done = False
+        self._retry_obs = 0
+        self._retry_nbuilds = None
+        # the cell grid's measured capacity, its cache key and the
+        # headroom boost each overflow re-choice applies
+        self._mcap = None
+        self._mcap_key = None
+        self._cap_boost = 1.0
 
     # ------------------------------------------------------------ fix hooks
 
@@ -269,17 +294,48 @@ class Simulation:
 
     # ------------------------------------------------------------------- run
 
-    def _select_strip_backend(self) -> StripBackend:
-        """The strip backend for the current particle distribution. The
-        port has no other backend: a configuration that cannot strip
-        raises."""
+    def _select_backend(self):
+        """The backend ladder of ``tpusph``'s ``_select_backend`` in its TPU
+        form, the card taking the TPU's place: the strip backend first;
+        where no strip geometry fits, a phase-change run takes the column
+        kernel (``PallasBackend``: the band backend has no particle pool),
+        and a run without phase change goes to band, which is not ported
+        yet. ``backend_name = "pallas"`` takes the column kernel for any
+        run. The reference's rung below 2,048 particles (the dense O(N^2)
+        backend) has no port yet, so ``auto`` keeps the strip for small
+        runs too."""
+        name = self.backend_name
         if self.tables.ntypes > 6:
             raise NotImplementedError(
-                f"{self.tables.ntypes} particle types: the strip backend "
-                f"takes at most 6; the others are {_FALLBACK_ITEM}")
+                f"{self.tables.ntypes} particle types: the strip and column "
+                f"kernels take at most 6; more go to {_CELLGRID_ITEM}")
+        if name == "auto":
+            name = "strip"
+        if name == "strip":
+            backend = self._select_strip_backend()
+            if backend is not None:
+                return backend
+            if self.phase_change_config is None:
+                raise NotImplementedError(
+                    "no strip geometry fits this box and particle "
+                    f"distribution; a run without phase change falls back "
+                    f"to {_BAND_ITEM}")
+            name = "pallas"
+        if name == "pallas":
+            return self._select_pallas_backend()
+        if name in ("band", "cellgrid", "dense"):
+            item = {"band": _BAND_ITEM, "cellgrid": _CELLGRID_ITEM,
+                    "dense": _DENSE_ITEM}[name]
+            raise NotImplementedError(f"backend {name!r}: {item}")
+        raise ValueError(f"unknown backend {name!r}")
+
+    def _select_strip_backend(self) -> Optional[StripBackend]:
+        """The strip backend for the current particle distribution, or None
+        when the box cannot strip. When escalated margin floors push every
+        candidate past the width cap, the strip is abandoned (a warning and
+        a flag) until ``_maybe_retry_strip`` retries it."""
         cutoff = self.tables.max_cut()
-        skin = self.neighbor_skin if self.neighbor_skin is not None \
-            else 0.3 * cutoff
+        skin = self._skin(cutoff)
         # wider column headroom under phase change: the growing vapour
         # phase must not overflow the column budget between re-choices
         headroom = 1.35 if self.phase_change_config is not None else 1.08
@@ -297,16 +353,78 @@ class Simulation:
                 drift=self._strip_drift, extra_rows=self._strip_extra)
         geom = self._strip_geom
         if geom is None:
-            raise NotImplementedError(
-                "the strip geometry chooser found no layout for this box "
-                f"and particle distribution; the others are {_FALLBACK_ITEM}")
-        key = (geom, self.reneigh_every)
+            if self._strip_extra != (0, 0) or self._strip_drift > 1.0:
+                # the loud-failure contract covers abandonment too: a
+                # large, otherwise quiet step down to a slower backend
+                self._strip_abandoned = True
+                warnings.warn(
+                    "strip geometry abandoned: escalated margin floor "
+                    f"extra_rows={self._strip_extra} drift="
+                    f"{self._strip_drift} pushed all candidates past the "
+                    "window-width cap; falling back to a slower backend "
+                    "(will retry after the transient)",
+                    RuntimeWarning, stacklevel=2)
+            return None
+        key = ("strip", geom, self.reneigh_every)
         if self._backend_cache.get("key") != key:
             self._backend_cache = dict(key=key, backend=StripBackend(
                 geom, ntypes=self.tables.ntypes,
                 rebuild_every=self.reneigh_every, device=self.device))
             self.aux = None
         return self._backend_cache["backend"]
+
+    def _select_pallas_backend(self) -> PallasBackend:
+        """The column kernel's backend on the cell grid. Its capacity is
+        ``cell_cap`` or the measured occupancy, measured once per (cutoff,
+        skin, particle-count growth bucket): a phase-change firing does not
+        re-measure, and the overflow re-choice covers occupancy that
+        outgrows the measure."""
+        cutoff = self.tables.max_cut()
+        skin = self._skin(cutoff)
+        cap = self.cell_cap
+        if cap is None:
+            prev = self._mcap_key[-1] if self._mcap_key else 0
+            mkey = (cutoff, skin, _growth_bucket(self.natoms, prev))
+            if self._mcap_key != mkey:
+                self._mcap_key = mkey
+                self._mcap = self._measured_cell_cap(cutoff, skin)
+            cap = self._mcap
+        geom = gridlib.make_geometry(self.box, cutoff, self.spec.dim,
+                                     skin=skin, cap=cap)
+        key = ("pallas", geom, self.reneigh_every)
+        if self._backend_cache.get("key") != key:
+            self._backend_cache = dict(key=key, backend=PallasBackend(
+                geom, self.box, ntypes=self.tables.ntypes,
+                rebuild_every=self.reneigh_every, device=self.device))
+            self.aux = None
+        return self._backend_cache["backend"]
+
+    def _skin(self, cutoff: float) -> float:
+        return self.neighbor_skin if self.neighbor_skin is not None \
+            else 0.3 * cutoff
+
+    def _measured_cell_cap(self, cutoff: float, skin: float) -> int:
+        """Cell capacity from the measured occupancy of the current
+        configuration (``tpusph``'s ``_measured_cell_cap``): the fullest
+        cell x 1.15 (x 1.6 under phase change, which inserts particles) x
+        the overflow boost, + 2, 8-aligned. The overflow guard raises if
+        the dynamics outgrow it."""
+        if self.state is not None:
+            self._pull_state()
+        x = np.asarray(self._staged["x"])
+        lo = self.box.lo.cpu().numpy()
+        length = self.box.hi.cpu().numpy() - lo
+        side = cutoff + skin
+        nc = np.maximum(np.floor(length / side).astype(int), 1)
+        if self.spec.dim == 2:
+            nc[2] = 1
+        size = length / nc
+        c = np.clip(((x - lo) // size).astype(int), 0, nc - 1)
+        flat = (c[:, 0] * nc[1] + c[:, 1]) * nc[2] + c[:, 2]
+        max_occ = int(np.bincount(flat).max()) if len(flat) else 8
+        frac = 1.6 if self.phase_change_config else 1.15
+        frac *= self._cap_boost
+        return int(math.ceil((max_occ * frac + 2) / 8.0) * 8)
 
     def _derive_perf_flags(self):
         """Static perf flags from the concrete tables: tables uniform over
@@ -334,7 +452,7 @@ class Simulation:
 
     def _ensure_runner(self) -> Runner:
         self._derive_perf_flags()
-        backend = self._select_strip_backend()
+        backend = self._select_backend()
         key = (self.spec, self.box.periodic, id(backend),
                self.end_of_step_hook)
         if self._runner is None or self._runner_key != key:
@@ -365,14 +483,16 @@ class Simulation:
         return self._thermo
 
     def run(self, nsteps: int):
-        """Run nsteps. If a rebuild counts a coverage overflow (the margins
-        chosen from the initial distribution no longer fit the evolved
-        density field), re-choose the geometry from the CURRENT state and
-        continue: steps completed before the abort are kept, and the
-        re-chosen margins take the measured shortfall as an absolute
-        floor (the reference's first-violation path). When the margin
-        floor later shows persistent slack (``_maybe_decay_margins``),
-        re-choose a leaner geometry the same way."""
+        """Run nsteps. If a rebuild counts an overflow (the margins chosen
+        from the initial distribution no longer fit the evolved density
+        field, or a cell outgrew its capacity), re-choose the geometry from
+        the CURRENT state and continue: steps completed before the abort
+        are kept, the re-chosen margins take the measured shortfall as an
+        absolute floor (the reference's first-violation path), and the
+        cell capacity's headroom grows x1.5 (at most x4). When the margin
+        floor later shows persistent slack (``_maybe_decay_margins``), or
+        an abandoned strip has seen three calm rebuilds on the column
+        kernel (``_maybe_retry_strip``), re-choose the same way."""
         attempts = 0
         remaining = nsteps
         pre = True
@@ -411,13 +531,18 @@ class Simulation:
                     self._strip_drift = min(self._strip_drift * 2.0, 8.0)
                 self._margin_short = (0, 0)
                 # a fresh violation episode re-arms (and resets) the
-                # margin-decay observer
+                # margin-decay and strip-retry observers
                 self._decay_obs = 0
                 self._decay_need = None
                 self._decay_blocked = False
+                self._strip_retry_done = False
+                self._retry_obs = 0
                 done = self._continue_after_abort()
                 # abort only on consecutive zero-progress re-chooses
                 attempts = 1 if done > 0 else attempts + 1
+                # more cell headroom, so the adaptation converges in a
+                # re-choice or two instead of re-overflowing by epsilon
+                self._cap_boost = min(self._cap_boost * 1.5, 4.0)
                 remaining -= done
                 # the continuation keeps the leapfrog half-step context:
                 # no Verlet::setup force recompute (`run pre no`)
@@ -437,12 +562,14 @@ class Simulation:
         self._pull_state()
         self._rebuilds_before = self.rebuilds
         self._strip_geom_key = None
+        self._mcap_key = None
         self._backend_cache = {}
         self._runner = None
         self._runner_key = None
         self.state = None
         self.aux = None
         self._decay_nbuilds = None  # rebuild counts restart
+        self._retry_nbuilds = None
         return done
 
     _DECAY_K = 3          # consecutive rebuild observations with slack
@@ -456,9 +583,13 @@ class Simulation:
         with the floors lowered to the measured need — but only if the
         128-row padded window would shrink (the pad is kept for geometry
         parity with the reference; a same-W re-choice blocks further
-        attempts until the next violation episode)."""
+        attempts until the next violation episode). Off the strip, the
+        retry observer watches instead."""
         g = self._strip_geom
         aux = self.aux
+        if g is None:
+            self._maybe_retry_strip(aux)
+            return
         if self._decay_prev_w is not None:
             # first observation under a decay re-choice: did it shrink?
             prev_w, self._decay_prev_w = self._decay_prev_w, None
@@ -501,6 +632,32 @@ class Simulation:
             f"strip margin slack measured over {self._DECAY_K} rebuilds: "
             f"window {g.w} -> {new_w} rows (floors {rows_lo}/{rows_hi})")
 
+    def _maybe_retry_strip(self, aux):
+        """The strip retry after an abandoned geometry (``tpusph``'s
+        api.py:977-1011): after _DECAY_K calm rebuilds on the column kernel
+        (calm: the overflow guard, which runs first, did not fire), re-choose
+        the strip from fresh measures, the floors reset. One retry per
+        violation episode: a second abandonment stays abandoned until a
+        new violation re-arms the observer."""
+        if not self._strip_abandoned or aux is None \
+                or self._strip_retry_done:
+            return
+        nb = int(aux.nbuilds.max())
+        last, self._retry_nbuilds = self._retry_nbuilds, nb
+        if last is None or nb <= last:
+            return  # no rebuild since the last observation
+        self._retry_obs += 1
+        if self._retry_obs < self._DECAY_K:
+            return
+        self._strip_extra = (0, 0)
+        self._strip_drift = 1.0
+        self._strip_abandoned = False
+        self._strip_retry_done = True
+        self._retry_obs = 0
+        raise MarginDecay(
+            f"strip was abandoned under escalated floors; {self._DECAY_K} "
+            "calm rebuilds since: re-choosing with fresh measures")
+
     def _restore_integrator_fields(self):
         """Put the staged f/de/drho back into the re-sorted pool rows by tag
         (the rebuild zeroes them): the first initial_integrate after a
@@ -531,7 +688,7 @@ class Simulation:
             self._build_state()
             self.aux = None
         if self.aux is None:
-            # initial sort + strip build (Verlet::setup's Neighbor::build)
+            # initial sort and build (Verlet::setup's Neighbor::build)
             self.state, self.aux = runner.backend.init_aux(self.state,
                                                            self.box)
             if not pre:
@@ -571,15 +728,18 @@ class Simulation:
 
     def _check_overflow(self):
         """Fixed-capacity overflow guard: dropped rows or an uncovered
-        window mean silently dropped interactions — raise, with the
-        measured shortfall kept for the re-choice."""
+        window mean silently dropped interactions — raise, with the strip's
+        measured shortfall kept for the re-choice (a cell-capacity overflow
+        carries none)."""
         ov = int(self.aux.overflow.sum())
         if ov > 0:
-            ms = self.aux.margin_short.cpu().numpy()
-            self._margin_short = (int(ms[0]), int(ms[1]))
+            ms = getattr(self.aux, "margin_short", None)
+            if ms is not None:
+                ms = ms.cpu().numpy()
+                self._margin_short = (int(ms[0]), int(ms[1]))
             raise CapacityOverflow(
-                f"strip capacity overflow ({ov} rows dropped from pair "
-                "windows or coverage violations)")
+                f"capacity overflow ({ov} rows dropped from pair windows "
+                "or coverage violations)")
 
     # ------------------------------------------------------------- accessors
 
@@ -599,8 +759,9 @@ class Simulation:
 
     @property
     def rebuilds(self) -> int:
-        """Strip builds over the simulation's life, re-chosen geometries
-        included (each layout's aux counts its own from 1)."""
+        """Rebuilds (strip or cell-grid builds) over the simulation's life,
+        re-chosen geometries included (each layout's aux counts its own
+        from 1)."""
         own = int(self.aux.nbuilds.sum()) if self.aux is not None else 0
         return self._rebuilds_before + own
 

@@ -2,7 +2,8 @@
 configuration of ``tpusph/bench.py`` (3D periodic two-phase box: rhosum +
 taitwater + heat conduction + CSF surface tension, a vapour sphere in
 liquid; in ``boiling`` mode with fix phase_change), driven through
-``Simulation.run``.
+``Simulation.run`` on the backend ``backend`` names (``auto``: the strip;
+``pallas``: the column kernel on the cell grid).
 
 The JSON keys are the reference's, plus where the number was taken: torch
 and CUDA versions, the device's name and its power limit. There is no
@@ -17,6 +18,8 @@ import time
 
 import numpy as np
 import torch
+
+from tpusph_torch.ops.pallas_pair import PallasBackend
 
 BASELINE_NODE_PSPS = 5.0e7  # estimated reference single-node particle-steps/s
 WARMUP_MAX = 8               # warmup windows at most
@@ -33,7 +36,8 @@ def card_info() -> tuple[str, str]:
 
 
 def build_bench_sim(n_particles: int, dim: int = 3, multiphase: bool = True,
-                    mode: str = "dynamic", device=None):
+                    mode: str = "dynamic", device=None,
+                    backend: str = "auto"):
     """A periodic two-phase block: a vapour sphere inside liquid.
 
     Modes (``tpusph.bench.build_bench_sim``):
@@ -43,13 +47,15 @@ def build_bench_sim(n_particles: int, dim: int = 3, multiphase: bool = True,
       boiling — dynamic + sph/heatconduction/phasechange (T_sat 1.5 on the
                 liquid-vapour pair) + fix phase_change on a hot liquid
                 shell around the sphere (insertions force rebuilds).
-    ``device`` None means the card (``Simulation``)."""
+    ``device`` None means the card (``Simulation``); ``backend`` is the
+    simulation's ``backend_name``."""
     from tpusph_torch.api import Simulation
     from tpusph_torch.ops.phase_change import PhaseChangeConfig
 
     if mode not in ("uniform", "dynamic", "boiling"):
         raise ValueError(f"unknown bench mode {mode!r}")
     sim = Simulation(dim=dim, screen=False, device=device)
+    sim.backend_name = backend
     per_side = int(round(n_particles ** (1.0 / dim)))
     dx = 1.0
     L = per_side * dx
@@ -123,7 +129,8 @@ BUBBLE_SIDE, BUBBLE_DX = 12, 0.25
 
 def build_bubble_sim(device=None, mode: str = "insert", prob: float = 1.0,
                      seed: int = 7, tsat: bool = True, sim=None,
-                     config_cls=None):
+                     config_cls=None, backend: str | None = None,
+                     nz: int | None = None):
     """The 12^3 vapour bubble in a hot liquid shell of
     ``tests/test_phase_change.py``: a jittered lattice, conduction with T_sat
     pinning (plain conduction, which conserves sum(e), with ``tsat=False``)
@@ -133,22 +140,30 @@ def build_bubble_sim(device=None, mode: str = "insert", prob: float = 1.0,
     ``sim`` and ``config_cls`` take an empty ``Simulation`` and the
     ``PhaseChangeConfig`` class of another package with the same API, so
     a reference run can be built from the same numpy inputs; by default
-    they are this package's, on ``device``."""
+    they are this package's, on ``device``. ``backend`` sets the
+    simulation's ``backend_name``; ``nz`` cuts the box to that many
+    lattice planes in z (a periodic column axis too short to strip when
+    below 4 x (cutoff + skin), 12 planes)."""
     from tpusph_torch.api import Simulation
     from tpusph_torch.ops.phase_change import PhaseChangeConfig
 
     if sim is None:
         sim = Simulation(dim=3, screen=False, device=device)
     config_cls = config_cls or PhaseChangeConfig
+    if backend is not None:
+        sim.backend_name = backend
     n_side, dx = BUBBLE_SIDE, BUBBLE_DX
+    nz = nz or n_side
     L = n_side * dx
     h = 2.4 * dx
-    sim.create_box([0, 0, 0], [L, L, L], periodic=(True,) * 3, ntypes=2)
+    sim.create_box([0, 0, 0], [L, L, nz * dx], periodic=(True,) * 3,
+                   ntypes=2)
     rng = np.random.default_rng(11)
     ax = np.arange(n_side, dtype=np.float32) * dx
-    g = np.stack(np.meshgrid(ax, ax, ax, indexing="ij"), -1).reshape(-1, 3)
+    az = np.arange(nz, dtype=np.float32) * dx
+    g = np.stack(np.meshgrid(ax, ax, az, indexing="ij"), -1).reshape(-1, 3)
     g = (g + rng.uniform(-0.02 * dx, 0.02 * dx, g.shape)).astype(np.float32)
-    r = np.linalg.norm(g - L / 2, axis=1)
+    r = np.linalg.norm(g - np.float32([L, L, nz * dx]) / 2, axis=1)
     vap = r < L / 4
     hot = ~vap & (r < L / 3)
     sim.add_particles(
@@ -179,19 +194,21 @@ def _sync(sim):
 
 def run_bench(n_particles: int = 1_000_000, n_steps: int = 50, dim: int = 3,
               multiphase: bool = True, n_windows: int = 3,
-              mode: str = "dynamic", device=None, sim=None) -> dict:
+              mode: str = "dynamic", device=None, sim=None,
+              backend: str = "auto") -> dict:
     """Median of ``n_windows`` timed windows of ``n_steps`` each, after
     warmup windows that run until one passes with no geometry re-choice
     (the lattice-to-fluid transition re-chooses the margins; that belongs
     outside the timed region). Rebuild counts per window are reported so
     a window that rebuilt more often reads as slower, not as noise;
     ``value_all_windows`` is all the timed work over all the timed wall
-    time, so a re-choice inside a window counts there. ``sim`` takes a simulation already built by ``build_bench_sim``; its
-    mode is then the caller's ``mode``. ``particles`` and the rate count
-    the particles before the run, as the reference does."""
+    time, so a re-choice inside a window counts there. ``sim`` takes a
+    simulation already built by ``build_bench_sim``; its mode and backend
+    are then the caller's ``mode`` and ``backend``. ``particles`` and the
+    rate count the particles before the run, as the reference does."""
     if sim is None:
         sim = build_bench_sim(n_particles, dim=dim, multiphase=multiphase,
-                              mode=mode, device=device)
+                              mode=mode, device=device, backend=backend)
     n = sim.natoms
 
     def rechoices():
@@ -232,7 +249,9 @@ def run_bench(n_particles: int = 1_000_000, n_steps: int = 50, dim: int = 3,
         else (sim.device.type, "not measured")
     return {
         "metric": f"particle-steps/sec/chip @ {n} particles "
-                  f"({dim}D multiphase: {styles}, backend=strip)",
+                  f"({dim}D multiphase: {styles}, backend={backend})",
+        # the backend the timed windows ran on
+        "backend": type(sim._runner.backend).__name__,
         "mode": mode,
         "value": round(psps, 1),
         "unit": "particle-steps/s",
@@ -252,7 +271,10 @@ def run_bench(n_particles: int = 1_000_000, n_steps: int = 50, dim: int = 3,
         "geometry_rechoices": rechoices(),
         "geometry_decays": sim._strip_decays,
         "warmup_windows": warmup_windows,
-        "strip_w": sim._strip_geom.w,
+        "strip_w": sim._strip_geom.w if sim._strip_geom else None,
+        "cell_cap": (sim._runner.backend.geom.cap
+                     if isinstance(sim._runner.backend, PallasBackend)
+                     else None),
         "steps": n_steps,
         "particles": int(n),
         "device": str(sim.device),

@@ -1,6 +1,7 @@
 """Force-stage dispatch — the counterpart of ``tpusph/forces.py``
-(``Pair::compute`` over the hybrid/overlay styles, SURVEY.md §3.2). The
-port has one backend, the strip backend, whose fused stage runs the rho,
+(``Pair::compute`` over the hybrid/overlay styles, SURVEY.md §3.2). Both
+of the port's backends, the strip backend and the column kernel's
+(``ops/pallas_pair.PallasBackend``), have a fused stage that runs the rho,
 colour-gradient and force sweeps and adds gravity."""
 
 from __future__ import annotations

@@ -1,2 +1,12 @@
-"""Pair-sweep backends of the torch port (the strip backend and its
-CUDA kernels)."""
+"""Pair-sweep backends of the torch port: the strip backend and the column
+kernel's backend on the cell grid, with their CUDA kernels."""
+
+
+def all_kernels() -> dict:
+    """Every kernel wrapper of the port by name (``strip_rho`` ...
+    ``strip_vapor``, ``column_rho`` ... ``column_force``): one registry
+    of launch counts. Imported on call, so that importing the package
+    imports no backend."""
+    from tpusph_torch.ops import pallas_pair, strip_pair
+    return {**{f"strip_{k}": w for k, w in strip_pair.KERNELS.items()},
+            **{f"column_{k}": w for k, w in pallas_pair.KERNELS.items()}}

@@ -1,8 +1,8 @@
 """What the strip backend inherits from ``tpusph/ops/band_pair.py``: the
 sentinel-dead slot contract, the packed field matrix, the pool resize, the
-skin/2 rebuild trigger, the neighbour-column offsets and image shifts, and
-the fused force stage (rho sweep -> rho patch -> colour-gradient sweep ->
-cg patch -> force sweep -> gravity).
+neighbour-column offsets and image shifts, and the fused force stage (rho
+sweep -> rho patch -> colour-gradient sweep -> cg patch -> force sweep ->
+gravity). The skin/2 rebuild trigger lives in ``tpusph_torch.grid``.
 
 The reference re-packs an i-array and a materialized window array for its
 TPU kernels and patches rows of both after each sweep. The port has no
@@ -17,7 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpusph_torch.ops.pallas_pair import (
+from tpusph_torch.ops.rows import (
     F_ROWS, OCGX, OCGY, ODE, ODRHO, OFX, OFZ, ORHO, OVIR, RCGX, RCGZ, RCV,
     RE, RM, RMIX, RRHO, RTYPE, RVX, RVZ, RX, RZ,
 )
@@ -61,16 +61,6 @@ def pack_fields(state: ParticleState, mix: torch.Tensor | None = None
     fld[RE] = state.e
     fld[RCV] = state.cv
     return fld
-
-
-def needs_rebuild(state: ParticleState, x_ref: torch.Tensor,
-                  skin: float) -> bool:
-    """Neighbor::decide() displacement trigger (skin/2); one host sync."""
-    if skin <= 0.0:
-        return True
-    disp = state.x - x_ref
-    d2 = torch.where(state.alive[:, None], disp * disp, 0.0).sum(-1)
-    return bool(d2.max() > (0.5 * skin) ** 2)
 
 
 def _neighbor_offsets(geom):

@@ -1,13 +1,17 @@
-"""Build and bind the hand-written CUDA strip sweeps — rho, colour
-gradient, force and the phase-change vapor query
-(``tpusph_torch/csrc/strip_sweeps.cu``).
+"""Build and bind the hand-written CUDA sweeps: the strip sweeps (rho,
+colour gradient, force and the phase-change vapor query,
+``csrc/strip_sweeps.cu``) and the column sweeps (rho, colour gradient,
+force, ``csrc/column_sweeps.cu``), which share their pair physics through
+``csrc/sph_pair.cuh``.
 
-The source has a plain C interface: it is compiled with ``nvcc`` for
+Each source has a plain C interface: it is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library under ``tpusph_torch/_build/`` at first
-use (keyed by the source's hash, so an edited source rebuilds) and loaded
-with ``ctypes``. No PyTorch headers are compiled, which keeps the build to
-seconds. Nothing here runs at import time: the CPU tests import the
-package on machines without a CUDA toolchain.
+use and loaded with ``ctypes``. A library is keyed by the hash of its
+source, the shared header and the flags, so an edit to any of them
+rebuilds it; the sources build in parallel, one ``nvcc`` each. No PyTorch
+headers are compiled, which keeps a build to seconds. Nothing here runs at
+import time: the CPU tests import the package on machines without a CUDA
+toolchain.
 """
 
 from __future__ import annotations
@@ -22,7 +26,9 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "strip_sweeps.cu"
+SOURCES = {"strip": _PKG / "csrc" / "strip_sweeps.cu",
+           "column": _PKG / "csrc" / "column_sweeps.cu"}
+HEADERS = (_PKG / "csrc" / "sph_pair.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -31,13 +37,17 @@ _GEOM_ARGS = ("n_slots", "ncols", "col_cap", "ts", "ch", "t_blk",
               "nblocks", "mlo", "mhi", "nnbr")
 _INT_ARGS = _GEOM_ARGS + ("dim", "kernel", "flags", "T1")
 _VAPOR_INT_ARGS = _GEOM_ARGS + ("vtype",)
+_COLUMN_INT_ARGS = ("n_slots", "ncx", "ncy", "ncz", "cap", "dim", "per_x",
+                    "per_y", "per_col", "kernel", "flags", "T1")
+_COLUMN_FLOAT_ARGS = ("lx", "ly", "lcol", "cutmax2")
 
 
 class _Lib:
-    """The loaded library and the compiler's resource report."""
+    """The loaded libraries by source name, and the compiler's resource
+    report of each build."""
 
-    def __init__(self, handle: ctypes.CDLL, ptxas_log: str):
-        self.handle = handle
+    def __init__(self, handles: dict, ptxas_log: str):
+        self.handles = handles
         self.ptxas_log = ptxas_log
 
 
@@ -55,64 +65,103 @@ def _nvcc() -> str:
     return found
 
 
+def _bind(name: str, handle: ctypes.CDLL) -> None:
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if name == "strip":
+        for sweep in ("rho", "cgrad", "force"):
+            fn = getattr(handle, f"strip_{sweep}_launch")
+            fn.argtypes = [ptr] * 7 + [i32] * len(_INT_ARGS) + [f32, ptr]
+            fn.restype = i32
+        fn = handle.strip_vapor_launch
+        fn.argtypes = [ptr] * 5 + [i32] * len(_VAPOR_INT_ARGS) + [f32, ptr]
+        fn.restype = i32
+    else:
+        for sweep in ("rho", "cgrad", "force"):
+            fn = getattr(handle, f"column_{sweep}_launch")
+            fn.argtypes = ([ptr] * 4 + [i32] * len(_COLUMN_INT_ARGS)
+                           + [f32] * len(_COLUMN_FLOAT_ARGS) + [ptr])
+            fn.restype = i32
+    err = getattr(handle, f"{name}_error_string")
+    err.argtypes = [i32]
+    err.restype = ctypes.c_char_p
+
+
 def load() -> _Lib:
-    """Compile (once per source version) and load the sweep library."""
+    """Compile (once per source version, all sources at once) and load the
+    sweep libraries."""
     global _lib
     if _lib is not None:
         return _lib
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    so = BUILD_DIR / f"libstrip_sweeps_{tag[:16]}.so"
-    log = BUILD_DIR / f"libstrip_sweeps_{tag[:16]}.ptxas.txt"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                              str(SOURCE)], capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
-        log.write_text(res.stdout + res.stderr)
+    header = b"".join(h.read_bytes() for h in HEADERS)
+    flags = " ".join(NVCC_FLAGS).encode()
+    builds, jobs = {}, {}
+    for name, src in SOURCES.items():
+        tag = hashlib.sha256(src.read_bytes() + header + flags).hexdigest()
+        so = BUILD_DIR / f"lib{src.stem}_{tag[:16]}.so"
+        log = so.with_suffix(".ptxas.txt")
+        builds[name] = (so, log)
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            jobs[name] = (tmp, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (tmp, proc) in jobs.items():
+        out, err = proc.communicate()
+        so, log = builds[name]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {SOURCES[name].name} "
+                          f"({proc.returncode}):\n{out}\n{err}")
+            continue
+        log.write_text(out + err)
         os.replace(tmp, so)
-    handle = ctypes.CDLL(str(so))
-    ptr = ctypes.c_void_p
-    for sweep in ("rho", "cgrad", "force"):
-        fn = getattr(handle, f"strip_{sweep}_launch")
-        fn.argtypes = ([ptr] * 7 + [ctypes.c_int] * len(_INT_ARGS)
-                       + [ctypes.c_float, ptr])
-        fn.restype = ctypes.c_int
-    fn = handle.strip_vapor_launch
-    fn.argtypes = ([ptr] * 5 + [ctypes.c_int] * len(_VAPOR_INT_ARGS)
-                   + [ctypes.c_float, ptr])
-    fn.restype = ctypes.c_int
-    handle.strip_error_string.argtypes = [ctypes.c_int]
-    handle.strip_error_string.restype = ctypes.c_char_p
-    _lib = _Lib(handle, log.read_text() if log.exists() else "")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    handles, logs = {}, []
+    for name, (so, log) in builds.items():
+        handles[name] = ctypes.CDLL(str(so))
+        _bind(name, handles[name])
+        if log.exists():
+            logs.append(log.read_text())
+    _lib = _Lib(handles, "\n".join(logs))
     return _lib
 
 
-def _call(name: str, tensors, ints, names, scalar: float, device) -> None:
-    lib = load().handle
+def _call(lib_name: str, fn_name: str, tensors, ints, int_names, floats,
+          device) -> None:
+    lib = load().handles[lib_name]
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib, f"strip_{name}_launch")(
-        *[t.data_ptr() for t in tensors], *[int(ints[k]) for k in names],
-        float(scalar), stream)
+    rc = getattr(lib, fn_name)(
+        *[t.data_ptr() for t in tensors], *[int(ints[k]) for k in int_names],
+        *[float(v) for v in floats], stream)
     if rc != 0:
-        raise RuntimeError(f"strip {name} sweep launch failed: CUDA error "
-                           f"{rc} ({lib.strip_error_string(rc).decode()})")
+        msg = getattr(lib, f"{lib_name}_error_string")(rc).decode()
+        raise RuntimeError(f"{fn_name} failed: CUDA error {rc} ({msg})")
 
 
 def launch(sweep: str, fld, perm, shift, delta, tab2, tab1, out, *,
            cutmax2: float, **ints) -> None:
-    """Launch one sweep on the current stream; raises on a refused launch.
-    Tensors are checked by the caller (strip_pair.SweepKernel)."""
-    _call(sweep, (fld, perm, shift, delta, tab2, tab1, out), ints,
-          _INT_ARGS, cutmax2, fld.device)
+    """Launch one strip sweep on the current stream; raises on a refused
+    launch. Tensors are checked by the caller (strip_pair.SweepKernel)."""
+    _call("strip", f"strip_{sweep}_launch",
+          (fld, perm, shift, delta, tab2, tab1, out), ints, _INT_ARGS,
+          (cutmax2,), fld.device)
 
 
 def launch_vapor(fld, perm, shift, delta, out, *, cut2: float,
                  **ints) -> None:
-    """Launch the vapor sweep on the current stream; raises on a refused
-    launch. Tensors are checked by the caller (strip_pair.VaporKernel)."""
-    _call("vapor", (fld, perm, shift, delta, out), ints, _VAPOR_INT_ARGS,
-          cut2, fld.device)
+    """Launch the strip vapor sweep on the current stream; raises on a
+    refused launch. Tensors are checked by the caller
+    (strip_pair.VaporKernel)."""
+    _call("strip", "strip_vapor_launch", (fld, perm, shift, delta, out),
+          ints, _VAPOR_INT_ARGS, (cut2,), fld.device)
+
+
+def launch_column(sweep: str, fld, tab2, tab1, out, *, lx: float,
+                  ly: float, lcol: float, cutmax2: float, **ints) -> None:
+    """Launch one column sweep on the current stream; raises on a refused
+    launch. Tensors are checked by the caller
+    (pallas_pair.ColumnSweepKernel)."""
+    _call("column", f"column_{sweep}_launch", (fld, tab2, tab1, out), ints,
+          _COLUMN_INT_ARGS, (lx, ly, lcol, cutmax2), fld.device)

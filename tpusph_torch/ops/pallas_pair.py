@@ -1,29 +1,358 @@
-"""Packed field-row and output-row meanings shared by the strip sweeps —
-the part of ``tpusph/ops/pallas_pair.py`` the port's slice reads.
+"""The column kernel's backend on torch — the counterpart of
+``tpusph/ops/pallas_pair.py``: the column layout (``ColumnGrid``,
+``pack_dense``, ``unpack_dense``), the rho / colour-gradient / force sweeps
+over cell columns as hand-written CUDA kernels (``csrc/column_sweeps.cu``)
+with their plain PyTorch version, and ``PallasBackend``, which runs them
+on the sorted cell grid (``ops/cellgrid.py``).
 
-The sweeps read one (F_ROWS, n_slots) float32 field matrix (one row per
-field, slot-major within a row so neighbouring threads read neighbouring
-addresses) and write one (8, n_slots) output matrix. Row meanings are the
-reference's, so a reader can match every row to its JAX counterpart.
+The port's idiom replaces the reference's dense (ncols, ncz, F, cap) array
+with one (F_ROWS, n_slots) field matrix: slot = cell * cap + rank with
+cell = column * ncz + cz (the reference's flat cell id), empty slots zero
+with type 0; and one (8, n_slots) output matrix. The all-dead sentinel
+column the reference appends for a non-periodic plane edge becomes an
+index test in the kernel. The reference's one-hot MXU coefficient lookups
+become table reads from shared memory.
+
+The reached configurations: a phase-change run that cannot strip (the
+``auto`` ladder in ``api.Simulation``), and any run with
+``backend_name = "pallas"``.
 """
 
-F_ROWS = 16
-RX, RY, RZ = 0, 1, 2
-RM = 3      # mass
-RTYPE = 4   # type as f32 (0 = dead)
-RRHO = 5
-RSLOT = 6   # sign-encoded slot: slot if owned, -(slot+1) if a seam ghost
-            # (vapor sweep only)
-RMIX = 7    # per-tile mixed-phase flag (cgrad skip, force ST skip)
-RVX, RVY, RVZ = 8, 9, 10
-RE = 11
-RCGX, RCGY, RCGZ = 12, 13, 14
-RCV = 15    # per-particle heat capacity
-# output rows (8)
-OFX, OFY, OFZ, ODRHO, ODE, ORHO, OCGX, OCGY = range(8)
-OVIR = ORHO  # force sweep only: the rho row carries the pair virial
+from __future__ import annotations
 
-# coefficient tables in the order the sweeps read them (params.stacked)
-TABLES_2D = ("cut", "visc", "heat_D", "cut_heat", "sigma", "cut_tension",
-             "cut_rho", "tsat")
-TABLES_1D = ("rho0", "tait_b", "c0", "gas_gamma", "color")
+import dataclasses
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from tpusph_torch.grid import CellGridData, GridGeometry
+from tpusph_torch.ops import cuda_build
+from tpusph_torch.ops import tile_physics
+from tpusph_torch.ops.band_pair import pack_fields
+from tpusph_torch.ops.cellgrid import CellGridBackend
+from tpusph_torch.ops.rows import (
+    F_ROWS, OCGX, OCGY, ODE, ODRHO, OFX, OFY, OFZ, ORHO, OVIR, RCGX, RCGZ,
+    RM, RRHO, RTYPE, RX, RY, RZ,
+)
+from tpusph_torch.ops.strip_pair import check_inputs, spec_flags
+from tpusph_torch.params import DeviceTables, PhysicsSpec
+from tpusph_torch.state import Box, ParticleState
+
+# largest cell capacity the kernels take (one thread per slot of a cell)
+MAX_CAP = 512
+
+
+class ColumnGrid(NamedTuple):
+    """Static column geometry derived from GridGeometry
+    (``tpusph.ops.pallas_pair.ColumnGrid``)."""
+    ncx: int
+    ncy: int          # 1 in 2D
+    ncz: int          # cells per column (innermost axis)
+    cap: int
+    dim: int
+    periodic: tuple
+    lengths: tuple    # box lengths (Lx, Ly, Lz)
+    col_axis: int     # 2 in 3D, 1 in 2D
+
+    @property
+    def ncols(self) -> int:
+        return self.ncx * self.ncy if self.dim == 3 else self.ncx
+
+    @property
+    def nnbr(self) -> int:
+        return 9 if self.dim == 3 else 3
+
+    @property
+    def col_cap(self) -> int:
+        return self.ncz * self.cap
+
+    @property
+    def n_slots(self) -> int:
+        return self.ncols * self.col_cap
+
+
+def make_column_grid(geom: GridGeometry, box: Box) -> ColumnGrid:
+    ncx, ncy, ncz = geom.ncells
+    L = tuple(float(v) for v in (box.hi - box.lo).cpu().numpy())
+    if geom.dim == 3:
+        return ColumnGrid(ncx, ncy, ncz, geom.cap, 3, geom.periodic, L, 2)
+    # 2D: the grid is (ncx, ncy, 1); columns run along y
+    return ColumnGrid(ncx, 1, ncy, geom.cap, 2, geom.periodic, L, 1)
+
+
+# --------------------------------------------------------------------------
+# packing: sorted rows <-> the slot-major field and output matrices
+# --------------------------------------------------------------------------
+
+def pack_dense(state: ParticleState, data: CellGridData, cg: ColumnGrid):
+    """(fld, flat_pos, ok): the (F_ROWS, n_slots) field matrix of the
+    sorted rows at slot cell_id * cap + rank, empty slots zero; each row's
+    slot, and whether the row has one (alive, in a cell, rank < cap). The
+    colour-gradient rows start at zero (the force stage patches them)."""
+    n = cg.n_slots
+    ok = state.alive & (data.rank < cg.cap) & (data.cell_id < cg.ncols
+                                                * cg.ncz)
+    flat_pos = torch.where(ok, data.cell_id * cg.cap + data.rank, n)
+    fld = torch.zeros(F_ROWS, n + 1, dtype=torch.float32,
+                      device=state.device)
+    fld[:, flat_pos] = torch.where(ok, pack_fields(state), 0.0)
+    return fld[:, :n].contiguous(), flat_pos, ok
+
+
+def unpack_dense(out: torch.Tensor, flat_pos: torch.Tensor, ok, rows):
+    """The (8, n_slots) output rows ``rows`` gathered back to the sorted
+    rows; rows without a slot read 0."""
+    safe = torch.where(ok, flat_pos, 0)
+    return [torch.where(ok, out[r].index_select(0, safe), 0.0)
+            for r in rows]
+
+
+# --------------------------------------------------------------------------
+# the plain version
+# --------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=8)
+def _column_neighbors(cg: ColumnGrid):
+    """Host-side (ncells, S) neighbour cell (-1: none past a non-periodic
+    edge) and (ncells, S, 3) float32 image shift of each of the 27 (3D) /
+    9 (2D) neighbour cells the kernel visits: +-L where the neighbour wraps
+    across a periodic axis, so x_j + shift sits next to the cell."""
+    if cg.dim == 3:
+        nc = np.array([cg.ncx, cg.ncy, cg.ncz])
+        offs = [(a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1)
+                for c in (-1, 0, 1)]
+    else:
+        nc = np.array([cg.ncx, cg.ncz, 1])
+        offs = [(a, b, 0) for a in (-1, 0, 1) for b in (-1, 0, 1)]
+    per = np.array(cg.periodic)
+    L = np.asarray(cg.lengths, np.float32)
+    coords = np.stack(np.meshgrid(*[np.arange(v) for v in nc],
+                                  indexing="ij"), -1).reshape(-1, 3)
+    nbr = coords[:, None, :] + np.asarray(offs)[None, :, :]
+    lo, hi = nbr < 0, nbr >= nc
+    valid = ~np.any((lo | hi) & ~per, axis=-1)
+    shift = np.where(per & lo, -L, np.where(per & hi, L, np.float32(0.0)))
+    w = np.mod(nbr, nc)
+    cell = (w[..., 0] * nc[1] + w[..., 1]) * nc[2] + w[..., 2]
+    return (np.where(valid, cell, -1).astype(np.int64),
+            shift.astype(np.float32))
+
+
+# candidate (i slot, j slot) entries per chunk of the plain sweep: bounds
+# its temporaries at any pool size
+_PLAIN_CHUNK = 1 << 25
+_FIELD_ROWS = {"rho": (RX, RY, RZ, RM, RTYPE, RRHO),
+               "cgrad": (RX, RY, RZ, RM, RTYPE, RRHO),
+               "force": tuple(range(F_ROWS))}
+_OUT_ROWS = {"rho": (ORHO,), "cgrad": (OCGX, OCGY, ODE),
+             "force": (OFX, OFY, OFZ, ODRHO, ODE, OVIR)}
+
+
+def live_reach(fld: torch.Tensor, cg: ColumnGrid) -> int:
+    """One past the last rank that holds a live row in any cell: the ranks
+    a sweep has to look at (one host sync)."""
+    live = (fld[RTYPE].reshape(-1, cg.cap) > 0.5).any(0).nonzero()
+    return int(live[-1]) + 1 if live.numel() else 0
+
+
+def _column_pairs(fld: torch.Tensor, cg: ColumnGrid, c0: int, c1: int,
+                  cutmax2: float, reach: int):
+    """(i slot, j slot, shift (Q, 3)) of every pair of i cells [c0, c1)
+    that the kernel's windows hold with both types alive and
+    1e-12 < rsq < cutmax2, rsq formed from x_i - (x_j + shift) as the
+    kernel forms it. Only ranks below ``reach`` (``live_reach``) are
+    looked at."""
+    dev = fld.device
+    cap = cg.cap
+    jcell, shift = (torch.as_tensor(a, device=dev)
+                    for a in _column_neighbors(cg))
+    cells = torch.arange(c0, c1, device=dev)
+    k = torch.arange(reach, device=dev)
+    islot = cells[:, None] * cap + k                          # (C, reach)
+    jc = jcell[c0:c1]                                         # (C, S)
+    jslot = (jc.clamp(min=0)[:, :, None] * cap + k).flatten(1)  # (C, M)
+    jok = (jc >= 0)[:, :, None].expand(-1, -1, reach).flatten(1)
+    sh = shift[c0:c1].repeat_interleave(reach, dim=1)         # (C, M, 3)
+    alive_i = fld[RTYPE].index_select(0, islot.reshape(-1)
+                                      ).reshape(islot.shape) > 0.5
+    alive_j = jok & (fld[RTYPE].index_select(0, jslot.reshape(-1)
+                                             ).reshape(jslot.shape) > 0.5)
+    rsq = None
+    for a in range(3):
+        xi = fld[RX + a].index_select(0, islot.reshape(-1)
+                                      ).reshape(islot.shape)
+        xj = fld[RX + a].index_select(0, jslot.reshape(-1)
+                                      ).reshape(jslot.shape) + sh[..., a]
+        d = xi[:, :, None] - xj[:, None, :]
+        rsq = d * d if rsq is None else rsq + d * d
+    keep = (alive_i[:, :, None] & alive_j[:, None, :] & (rsq > 1e-12)
+            & (rsq < cutmax2)).nonzero()
+    c, i, m = keep[:, 0], keep[:, 1], keep[:, 2]
+    return islot[c, i], jslot[c, m], sh[c, m]
+
+
+def plain_column_sweep(sweep: str, fld: torch.Tensor, tabs: DeviceTables,
+                       cg: ColumnGrid, spec: PhysicsSpec) -> torch.Tensor:
+    """The plain PyTorch version of one column sweep, on any device.
+
+    Same contract as the CUDA kernel: for i slot s of cell c, the
+    candidates are the slots of the 27 (3D) / 9 (2D) neighbour cells, with
+    their image shift; a pair needs both types alive and 1e-12 < rsq (the
+    TPU kernel's mask), and pairs beyond the sweep's largest cutoff are
+    dropped first (``_column_pairs``). The physics of ``tile_physics``
+    runs on the surviving pair list; the rho sweep adds the self term.
+    Returns the (8, n_slots) output matrix with the sweep's O* rows filled
+    on alive slots, zero elsewhere."""
+    dev = fld.device
+    n, cap = cg.n_slots, cg.cap
+    ncells = cg.ncols * cg.ncz
+    out = torch.zeros(8, n, dtype=torch.float32, device=dev)
+    reach = live_reach(fld, cg)
+    cstep = max(1, _PLAIN_CHUNK // max(reach * reach * 3 * cg.nnbr, 1))
+    rows = _FIELD_ROWS[sweep]
+    sel = fld[list(rows)]
+    for c0 in range(0, ncells if reach else 0, cstep):
+        c1 = min(c0 + cstep, ncells)
+        pi, pj, sh = _column_pairs(fld, cg, c0, c1, tabs.cutmax2[sweep],
+                                   reach)
+        r0, r1 = c0 * cap, c1 * cap
+        h_rows = tile_physics.hoist_i(
+            {r: fld[r, r0:r1] for r in rows}, tabs.tab1, spec, sweep)
+        h = {key: v.index_select(0, pi - r0) for key, v in h_rows.items()}
+        fi = dict(zip(rows, sel.index_select(1, pi)))
+        fj = dict(zip(rows, sel.index_select(1, pj)))
+        dx = tuple(fi[RX + a] - (fj[RX + a] + sh[:, a]) for a in range(3))
+        rsq = dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2]
+        lk = tile_physics.Lookups(tabs.tab2, tabs.tab1, spec,
+                                  fi[RTYPE].long(), fj[RTYPE].long())
+        parts = tile_physics.tile_part_sums(fi, fj, h, dx, rsq, lk, spec,
+                                            sweep)
+        for row, p in zip(_OUT_ROWS[sweep], parts):
+            out[row].index_add_(0, pi, p)
+    if sweep == "rho":
+        # zero on empty slots: type 0's cut_rho entry is 0
+        out[ORHO] += tile_physics.rho_self(fld, tabs.tab2, spec)
+    return out
+
+
+class ColumnSweepKernel:
+    """Wrapper of one CUDA column sweep (``column_{sweep}_launch``).
+
+    Replaces ``tpusph.ops.pallas_pair.make_column_kernel(sweep=...)`` (the
+    ``pl.pallas_call`` at pallas_pair.py:542). CPU tensors take the plain
+    version (``plain_column_sweep``); CUDA tensors launch the kernel or
+    raise. ``launches`` counts kernel launches only.
+
+    On the card the sweep is bound by instruction throughput: each i row
+    scans 27 * cap candidates (3,024 at the 1M bench's cap of 112), a few
+    percent of them within the cutoff. One block per i cell stages each
+    neighbour column's three cells in shared memory (with the image shift
+    and per-j terms applied once), keeps the tables in shared memory, and
+    rejects a candidate on rsq before any table lookup."""
+
+    def __init__(self, sweep: str):
+        self.sweep = sweep
+        self.launches = 0
+
+    def __call__(self, fld: torch.Tensor, tabs: DeviceTables,
+                 cg: ColumnGrid, spec: PhysicsSpec) -> torch.Tensor:
+        n, T1 = cg.n_slots, tabs.tab1.shape[1]
+        check_inputs(f"column {self.sweep} sweep", fld, (
+            ("fld", fld, (F_ROWS, n), torch.float32),
+            ("tab2", tabs.tab2, (8, T1, T1), torch.float32),
+            ("tab1", tabs.tab1, (5, T1), torch.float32)))
+        if not 1 <= cg.cap <= MAX_CAP:
+            raise ValueError(f"column {self.sweep} sweep: cell capacity "
+                             f"{cg.cap} outside [1, {MAX_CAP}]")
+        if fld.device.type == "cpu":
+            return plain_column_sweep(self.sweep, fld, tabs, cg, spec)
+        out = torch.zeros(8, n, dtype=torch.float32, device=fld.device)
+        per = cg.periodic
+        cuda_build.launch_column(
+            self.sweep, fld, tabs.tab2, tabs.tab1, out, n_slots=n,
+            ncx=cg.ncx, ncy=cg.ncy, ncz=cg.ncz, cap=cg.cap, dim=cg.dim,
+            per_x=int(per[0]), per_y=int(cg.dim == 3 and per[1]),
+            per_col=int(per[cg.col_axis]), kernel=spec.kernel,
+            flags=spec_flags(spec), T1=T1, lx=cg.lengths[0],
+            ly=cg.lengths[1], lcol=cg.lengths[cg.col_axis],
+            cutmax2=tabs.cutmax2[self.sweep])
+        self.launches += 1
+        return out
+
+
+column_rho = ColumnSweepKernel("rho")
+column_cgrad = ColumnSweepKernel("cgrad")
+column_force = ColumnSweepKernel("force")
+# every kernel wrapper of the column backend, by sweep (launch counts)
+KERNELS = {"rho": column_rho, "cgrad": column_cgrad, "force": column_force}
+
+
+# --------------------------------------------------------------------------
+# backend
+# --------------------------------------------------------------------------
+
+class PallasBackend:
+    """The column kernel's backend: the cell-grid lifecycle (sort,
+    rebuild, vapor query) and the fused force stage over the column
+    layout. The pool keeps its capacity (the cell grid is not slot
+    resident). Single device."""
+
+    def __init__(self, geom: GridGeometry, box: Box, ntypes: int,
+                 rebuild_every: int = 0, device="cpu"):
+        self.geom = geom
+        self.ntypes = ntypes
+        self._cells = CellGridBackend(geom, rebuild_every, device)
+        self.colgrid = make_column_grid(geom, box)
+
+    def init_aux(self, state: ParticleState, box: Box):
+        return self._cells.init_aux(state, box)
+
+    def prepare(self, state: ParticleState, aux: CellGridData, istep: int,
+                box: Box):
+        return self._cells.prepare(state, aux, istep, box)
+
+    def vapor_neighbor(self, state: ParticleState, box: Box, vtype: int,
+                       cut: float, aux: CellGridData):
+        return self._cells.vapor_neighbor(state, box, vtype, cut, aux)
+
+    def force_stage(self, state: ParticleState, tabs: DeviceTables,
+                    spec: PhysicsSpec, aux: CellGridData,
+                    istep: int) -> ParticleState:
+        """One pack, then rho sweep -> rho patch -> cgrad sweep -> cg patch
+        -> force sweep on the field matrix, the outputs gathered back to
+        the sorted rows, then gravity (``tpusph``'s
+        ``PallasBackend.force_stage``). The rho sweep folds the self term
+        in, where the reference adds it per type after the kernel."""
+        cg = self.colgrid
+        alive = state.alive
+        fld, flat_pos, ok = pack_dense(state, aux, cg)
+        rho = state.rho
+        if spec.rhosum_every > 0:
+            total = column_rho(fld, tabs, cg, spec)[ORHO]
+            if spec.rhosum_nd:
+                total = total * fld[RM]
+            if istep % spec.rhosum_every == 0:
+                fld[RRHO] = torch.where(fld[RTYPE] > 0.5, total, fld[RRHO])
+                (new,) = unpack_dense(fld, flat_pos, ok, (RRHO,))
+                rho = torch.where(ok, new, state.rho)
+        if spec.surface_tension:
+            out = column_cgrad(fld, tabs, cg, spec)
+            fld[RCGX:RCGZ + 1] = out[[OCGX, OCGY, ODE]]
+        out = column_force(fld, tabs, cg, spec)
+        rows = (OFX, OFY, OFZ, ODRHO, ODE) + ((OVIR,) if spec.virial
+                                                  else ())
+        got = unpack_dense(out, flat_pos, ok, rows)
+        upd = dict(
+            rho=rho,
+            f=torch.where(alive[:, None], torch.stack(got[:3], 1), 0.0),
+            drho=torch.where(alive, got[3], 0.0),
+            de=torch.where(alive, got[4], 0.0))
+        if spec.virial:
+            upd["vir"] = torch.where(alive, got[5], 0.0)
+        if spec.gravity:
+            gmask = (alive & state.mobile)[:, None]
+            upd["f"] = upd["f"] + torch.where(
+                gmask, state.rmass[:, None] * tabs.gravity[None, :], 0.0)
+        return dataclasses.replace(state, **upd)

@@ -108,8 +108,9 @@ def make_end_of_step_hook(config: PhaseChangeConfig, spec: PhysicsSpec):
             return state, aux
         state, changed = _apply_phase_change(state, istep, config, spec,
                                              backend, box, aux)
-        # insertion invalidates the strip sort: blow up the displacement
-        # reference so the next prepare rebuilds before any force pass
+        # insertion invalidates the sort (strip or cell grid): blow up the
+        # displacement reference so the next prepare rebuilds before any
+        # force pass
         bump = torch.where(changed, float("inf"), 0.0)
         aux = dataclasses.replace(aux, x_ref=aux.x_ref + bump)
         return state, aux

@@ -32,14 +32,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpusph_torch.grid import GridData
+from tpusph_torch.grid import GridData, needs_rebuild
 from tpusph_torch.ops import cuda_build
 from tpusph_torch.ops import tile_physics
 from tpusph_torch.ops.band_pair import (
     BandBackend, _neighbor_offsets, _plane_shift, dead_lane_fill,
-    needs_rebuild, pack_fields,
+    pack_fields,
 )
-from tpusph_torch.ops.pallas_pair import (
+from tpusph_torch.ops.rows import (
     F_ROWS, OCGX, OCGY, ODE, ODRHO, OFX, OFY, OFZ, ORHO, RCV, RM, RMIX,
     RRHO, RSLOT, RTYPE, RX, RY, RZ,
 )
@@ -898,12 +898,12 @@ _FLAG_BITS = ("rhosum_nd", "tait", "morris", "ideal_gas", "lj",
               "continuity", "virial")
 
 
-def _spec_flags(spec: PhysicsSpec) -> int:
+def spec_flags(spec: PhysicsSpec) -> int:
     return sum(1 << k for k, name in enumerate(_FLAG_BITS)
                if getattr(spec, name))
 
 
-def _check_inputs(what: str, fld: torch.Tensor, checks) -> None:
+def check_inputs(what: str, fld: torch.Tensor, checks) -> None:
     """Raise ValueError unless every (name, tensor, shape, dtype) of
     ``checks`` has that shape and dtype, lies on fld's device and is
     contiguous."""
@@ -961,7 +961,7 @@ class SweepKernel:
                  win: StripWindows, delta: torch.Tensor,
                  geom: StripGeometry, spec: PhysicsSpec) -> torch.Tensor:
         n, T1 = geom.n_slots, tabs.tab1.shape[1]
-        _check_inputs(f"{self.sweep} sweep", fld, _window_checks(
+        check_inputs(f"{self.sweep} sweep", fld, _window_checks(
             fld, win, delta, geom) + (
                 ("tab2", tabs.tab2, (8, T1, T1), torch.float32),
                 ("tab1", tabs.tab1, (5, T1), torch.float32)))
@@ -971,7 +971,7 @@ class SweepKernel:
         cuda_build.launch(
             self.sweep, fld, win.perm, win.shift, delta, tabs.tab2,
             tabs.tab1, out, dim=geom.dim, kernel=spec.kernel,
-            flags=_spec_flags(spec), T1=T1, cutmax2=tabs.cutmax2[self.sweep],
+            flags=spec_flags(spec), T1=T1, cutmax2=tabs.cutmax2[self.sweep],
             **_geom_ints(geom))
         self.launches += 1
         return out
@@ -1093,7 +1093,7 @@ class VaporKernel:
     def __call__(self, fld: torch.Tensor, win: StripWindows,
                  delta: torch.Tensor, geom: StripGeometry, vtype: int,
                  cut: float) -> torch.Tensor:
-        _check_inputs("vapor sweep", fld,
+        check_inputs("vapor sweep", fld,
                       _window_checks(fld, win, delta, geom))
         n = geom.n_slots
         if n >= 1 << 24:

@@ -12,7 +12,7 @@ lists — every (i, j) of the strip windows that survives the distance test
 i rows. The pair SET is the kernel's; only the summation order differs.
 
 Per-pair arrays: ``fi``/``fj`` are dicts of field rows (keys are the R*
-row ids of ``pallas_pair``) gathered at the pair's i and j slots.
+row ids of ``rows``) gathered at the pair's i and j slots.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from tpusph_torch import kernels
-from tpusph_torch.ops.pallas_pair import (
+from tpusph_torch.ops.rows import (
     RCGX, RCGY, RCGZ, RCV, RE, RM, RRHO, RTYPE, RVX, RVY, RVZ, TABLES_1D,
     TABLES_2D,
 )

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from tpusph_torch import kernels
-from tpusph_torch.ops.pallas_pair import TABLES_1D, TABLES_2D
+from tpusph_torch.ops.rows import TABLES_1D, TABLES_2D
 
 
 @dataclasses.dataclass(frozen=True)

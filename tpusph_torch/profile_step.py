@@ -1,6 +1,7 @@
 """Where the time goes in one timed bench window on the card.
 
-    python -m tpusph_torch.profile_step --mode boiling [--particles N]
+    python -m tpusph_torch.profile_step --mode boiling [--backend pallas]
+                                        [--particles N]
 
 Builds the bench (``tpusph_torch.bench``), warms it up as ``run_bench``
 does, then runs one window of ``--steps`` steps under ``torch.profiler``
@@ -8,7 +9,8 @@ and prints, as one JSON line: the window's wall time, the device time of
 each hand-written kernel (launches, total and mean ms), the device time of
 all other device work, the device idle share (wall time not covered by
 device work), and the window's rebuilds and phase-change insertions.
-Needs a CUDA device.
+``--backend`` is the simulation's ``backend_name`` (``auto``: the strip;
+``pallas``: the column kernel on the cell grid). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -23,22 +25,27 @@ from torch.autograd import DeviceType
 
 from tpusph_torch.bench import build_bench_sim, card_info, run_bench
 
-# the hand-written kernels by their names in chip_smoke.py; the sweep
-# kernel's template argument is the Sweep enum (rho 0, cgrad 1, force 2)
-KERNEL_NAMES = ("rho", "cgrad", "force", "vapor")
-_SWEEP = re.compile(r"strip_sweep_kernel<(?:\(int\))?(\d)>")
+# the hand-written kernels by their names in tpusph_torch.ops.all_kernels;
+# a sweep kernel's template argument is the Sweep enum (rho 0, cgrad 1,
+# force 2)
+SWEEPS = ("rho", "cgrad", "force")
+KERNEL_NAMES = tuple(f"{b}_{s}" for b in ("strip", "column") for s in SWEEPS
+                     ) + ("strip_vapor",)
+_SWEEP = re.compile(r"(strip|column)_sweep_kernel<(?:\(int\))?(\d)>")
 
 
 def _kernel_of(name: str) -> str | None:
     if "strip_vapor_kernel" in name:
-        return "vapor"
+        return "strip_vapor"
     m = _SWEEP.search(name)
-    return KERNEL_NAMES[int(m.group(1))] if m else None
+    return f"{m.group(1)}_{SWEEPS[int(m.group(2))]}" if m else None
 
 
-def profile_window(mode: str, n_particles: int, steps: int) -> dict:
-    sim = build_bench_sim(n_particles, mode=mode)
-    warm = run_bench(sim=sim, n_steps=steps, n_windows=1, mode=mode)
+def profile_window(mode: str, n_particles: int, steps: int,
+                   backend: str = "auto") -> dict:
+    sim = build_bench_sim(n_particles, mode=mode, backend=backend)
+    warm = run_bench(sim=sim, n_steps=steps, n_windows=1, mode=mode,
+                     backend=backend)
     nb0 = sim.rebuilds
     n0 = sim.natoms
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -70,7 +77,8 @@ def profile_window(mode: str, n_particles: int, steps: int) -> dict:
                 device_idle_share=max(0.0, 1.0 - busy_ms / (1e3 * wall)),
                 rebuilds=sim.rebuilds - nb0,
                 insertions=sim.natoms - n0,
-                strip_w=sim._strip_geom.w,
+                backend=warm["backend"], strip_w=warm["strip_w"],
+                cell_cap=warm["cell_cap"],
                 warmup_psps=warm["value"], device_name=name,
                 power_limit=limit)
 
@@ -81,10 +89,12 @@ def main() -> None:
                     choices=("uniform", "dynamic", "boiling"))
     ap.add_argument("--particles", type=int, default=1_000_000)
     ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--backend", default="auto", choices=("auto", "pallas"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
-    print(json.dumps(profile_window(args.mode, args.particles, args.steps)))
+    print(json.dumps(profile_window(args.mode, args.particles, args.steps,
+                                    args.backend)))
 
 
 if __name__ == "__main__":

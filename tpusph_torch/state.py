@@ -104,6 +104,11 @@ class ParticleState:
         """Number of alive OWNED particles (seam ghosts are copies)."""
         return int((self.alive & self.owned).sum())
 
+    def permute(self, perm: torch.Tensor) -> "ParticleState":
+        """Every per-particle array reordered by ``perm`` (the cell sort)."""
+        return ParticleState(**{f.name: getattr(self, f.name)[perm]
+                                for f in dataclasses.fields(self)})
+
 
 def state_from_numpy(arrays: dict, device="cpu") -> ParticleState:
     """Build a state from a dict of the 17 host arrays (e.g. a JAX
