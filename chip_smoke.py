@@ -6,8 +6,9 @@
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. device  — a CUDA device must exist; prints nvidia-smi's name and
                power limit.
-  2. build   — compiles csrc/strip_sweeps.cu and csrc/column_sweeps.cu with
-               nvcc (sm_90a, one nvcc each, in parallel) and loads them.
+  2. build   — compiles csrc/strip_sweeps.cu, csrc/column_sweeps.cu and
+               csrc/band_sweeps.cu with nvcc (sm_90a, one nvcc each, in
+               parallel) and loads them.
   3. kernels — on the bench `dynamic` state after the initial strip build,
                runs each of the rho / colour-gradient / force sweeps through
                its CUDA kernel and its plain PyTorch version, checks the
@@ -46,13 +47,25 @@ Phases, each of which raises on failure (exit code != 0, no result line):
  12. column  — phase 10 again on the layout after the column path, and the
                cell-grid vapor query's time per firing.
  13. column slice — the 12^3 bubble on the column kernel, GPU against CPU.
- 14. ladder  — a phase-change run whose periodic column axis is too short
+ 14. band    — on the bench `dynamic` state under backend="band" (the
+               slot-resident sub-cell layout) after the initial build, the
+               three band sweeps' kernels against their plain versions, as
+               in phase 3.
+ 15. band dynamic — resets the counts, runs the `dynamic` bench with
+               backend="band", and checks the three band kernels were
+               launched and no strip or column kernel was, the timed
+               windows ran on BandBackend, plus phase 4's ledgers.
+ 16. band    — phase 14 again on the layout after the band path.
+ 17. band slice — the 16^3 `dynamic` bench slice on band, GPU against CPU.
+ 18. ladder  — a phase-change run whose periodic column axis is too short
                to strip takes the column kernel under "auto"; escalated
-               floors abandon the strip for the column kernel, and three
-               calm rebuilds later the strip comes back.
-Prints the three bench JSON lines, one JSON line of the kernels (launches
-on the boiling paths; times and bounds from phases 8 and 12, the largest
-error of all comparisons), and as the last line
+               floors abandon the strip for the column kernel (phase
+               change on) and for band (phase change off), and three calm
+               rebuilds later the strip comes back, each with the CPU
+               run's trajectory.
+Prints the four bench JSON lines, one JSON line of the kernels (launches
+on the boiling paths and the band path; times and bounds from phases 8, 12
+and 16, the largest error of all comparisons), and as the last line
 {"ok": true, "device": {...}}.
 """
 
@@ -70,17 +83,22 @@ import time
 # round-to-nearest intrinsics: it must agree exactly.
 KERNEL_RTOL = {"rho": 2e-5, "cgrad": 2e-4, "force": 2e-4, "vapor": 0.0}
 SOURCES = {"strip": "tpusph_torch/csrc/strip_sweeps.cu",
-           "column": "tpusph_torch/csrc/column_sweeps.cu"}
+           "column": "tpusph_torch/csrc/column_sweeps.cu",
+           "band": "tpusph_torch/csrc/band_sweeps.cu"}
 REPLACES = {"strip_rho": "tpusph/ops/strip_pair.py:1106",
             "strip_cgrad": "tpusph/ops/strip_pair.py:1106",
             "strip_force": "tpusph/ops/strip_pair.py:1106",
             "strip_vapor": "tpusph/ops/strip_pair.py:1251",
             "column_rho": "tpusph/ops/pallas_pair.py:233",
             "column_cgrad": "tpusph/ops/pallas_pair.py:233",
-            "column_force": "tpusph/ops/pallas_pair.py:233"}
+            "column_force": "tpusph/ops/pallas_pair.py:233",
+            "band_rho": "tpusph/ops/band_pair.py:484",
+            "band_cgrad": "tpusph/ops/band_pair.py:484",
+            "band_force": "tpusph/ops/band_pair.py:484"}
 KERNELS = ("rho", "cgrad", "force", "vapor")
 STRIP = tuple(f"strip_{k}" for k in KERNELS)
 COLUMN = ("column_rho", "column_cgrad", "column_force")
+BAND = ("band_rho", "band_cgrad", "band_force")
 
 # the least time the card could take: the larger of the bytes moved over
 # 3.35 TB/s and the float32 operations over 67 TFLOP/s (no tensor cores)
@@ -143,12 +161,13 @@ def bound(name, n_rows, ops):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def strip_state(sim, after_run):
-    """(backend, state, aux, tables) of the strip layout the sweeps see:
-    after the initial sort and build (``after_run`` False), or, after a
-    main path, the state its next step's force stage would get (the
-    rebuild trigger, a rebuild where it fires — over the slots inserted by
-    a last-step phase-change firing too — and the seam refresh)."""
+def layout_state(sim, after_run):
+    """(backend, state, aux, tables) of the layout the sweeps see: after
+    the initial sort and build (``after_run`` False), or, after a main
+    path, the state its next step's force stage would get (the rebuild
+    trigger, a rebuild where it fires — over the slots inserted by a
+    last-step phase-change firing too — and, on the strip, the seam
+    refresh)."""
     if after_run:
         backend = sim._runner.backend
         state, aux, _ = backend.prepare(sim.state, sim.aux, sim.step_count,
@@ -161,16 +180,17 @@ def strip_state(sim, after_run):
 
 
 def timed(name, run_kernel, run_plain, n_rows, ops, reps, kind=None):
-    """Kernel and plain times by CUDA events and the bound (of the sweep
-    ``kind``, by default ``name``), printed."""
+    """Kernel and plain times by CUDA events, the bound (of the sweep
+    ``kind``, by default ``name``) and the roofline share (bound over
+    kernel time), printed."""
     ms = cuda_ms(run_kernel, reps)
     plain_ms = cuda_ms(run_plain, 1)
     bound_ms, bound_by = bound(kind or name, n_rows, ops)
+    share = bound_ms / ms
     print(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}), roofline share "
-          f"{bound_ms / ms:.2%}")
+          f"{bound_ms:.4f} ms ({bound_by}), roofline share {share:.2%}")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by=bound_by, roofline_share=share)
 
 
 def compare_rows(label, sweep, out_k, out_p, alive, rows):
@@ -194,18 +214,18 @@ def compare_rows(label, sweep, out_k, out_p, alive, rows):
 
 
 def hold_to_plain(sim, names, after_run=False, reps=10):
-    """Each kernel of ``names`` against its plain version on the state of
-    ``strip_state``, fed as the main path feeds them (the three sweeps as
-    the force stage does: rho patched before cgrad, cg before force; the
-    vapor sweep as the phase-change query does, with vtype and the cutoff
-    of the simulation's config). Returns {name: report}."""
+    """Each kernel of ``names`` against its plain version on the strip
+    state of ``layout_state``, fed as the main path feeds them (the three
+    sweeps as the force stage does: rho patched before cgrad, cg before
+    force; the vapor sweep as the phase-change query does, with vtype and
+    the cutoff of the simulation's config). Returns {name: report}."""
     import torch
     from tpusph_torch.ops import strip_pair
     from tpusph_torch.ops.band_pair import pack_fields
     from tpusph_torch.ops.rows import (
         OCGX, OCGY, ODE, ODRHO, OFX, OFY, OFZ, ORHO, RCGX, RCGZ, RMIX, RRHO)
 
-    backend, state, aux, tabs = strip_state(sim, after_run)
+    backend, state, aux, tabs = layout_state(sim, after_run)
     geom, spec = backend.geom, sim.spec
     alive = state.alive
     own = alive & state.owned
@@ -347,8 +367,8 @@ def read_counts(names):
 
 def phase_main(sim, mode, steps, windows, backend="auto"):
     """One bench main path, ``mode`` "dynamic" or "boiling", on
-    ``backend`` ("auto": the strip; "pallas": the column kernel); returns
-    (launches, bench line)."""
+    ``backend`` ("auto": the strip; "band": the band backend; "pallas": the
+    column kernel); returns (launches, bench line)."""
     import numpy as np
     import torch
     from tpusph_torch.bench import run_bench
@@ -358,12 +378,20 @@ def phase_main(sim, mode, steps, windows, backend="auto"):
     n0 = sim.natoms
     if backend == "pallas":
         names = COLUMN
+    elif backend == "band":
+        names = BAND
     else:
         names = STRIP if mode == "boiling" else STRIP[:3]
     reset_counts()
     bench = run_bench(sim=sim, n_steps=steps, n_windows=windows, mode=mode,
                       backend=backend)
     launches = read_counts(names)
+    if backend == "band":
+        # the timed windows ran on band (bench "backend" is that of the
+        # last window's runner)
+        print(f"  backend {bench['backend']}, band geometry "
+              f"{bench['band_geometry']}")
+        assert bench["backend"] == "BandBackend", bench["backend"]
     assert int(sim.aux.overflow.sum()) == 0, "overflow at the end"
     st = sim.state
     for name in ("x", "v", "vest", "f", "rho", "drho", "e", "de"):
@@ -397,26 +425,36 @@ def phase_slices():
     """The CPU tests' slices on the GPU against the plain versions on the
     CPU: the 16^3 `dynamic` bench (tests/test_torch_slice.py) and the 12^3
     boiling bubble (tests/test_torch_phase_change.py)."""
+    dynamic_slice("auto")
+    bubble_slice("auto")
+
+
+def dynamic_slice(backend):
+    """The 16^3 `dynamic` bench (lattice moved off the cell edges by half a
+    spacing, a rebuild every 5 steps) for 20 steps on ``backend``, on the
+    GPU against the CPU."""
     import numpy as np
     from tpusph_torch.bench import build_bench_sim
 
     sims = {}
     for dev in ("cuda", "cpu"):
-        sim = build_bench_sim(4096, mode="dynamic", device=dev)
+        sim = build_bench_sim(4096, mode="dynamic", device=dev,
+                              backend=backend)
         sim._staged["x"] += 0.5
         sim.reneigh_every = 5
         sim.run(20)
         sims[dev] = sim
+    kind = type(sims["cuda"]._runner.backend).__name__
+    assert kind == type(sims["cpu"]._runner.backend).__name__
     for field in ("rho", "e", "v", "x"):
         a, b = sims["cpu"].get(field), sims["cuda"].get(field)
         d = b - a
         if field == "x":
             d -= 16.0 * np.round(d / 16.0)
         err = float(np.abs(d).max())
-        print(f"  dynamic slice {field}: max |gpu - cpu| {err:.3e} "
-              "(bound 5e-5)")
+        print(f"  dynamic slice on {kind} {field}: max |gpu - cpu| "
+              f"{err:.3e} (bound 5e-5)")
         assert err <= 5e-5, (field, err)
-    bubble_slice("auto")
 
 
 def bubble_slice(backend):
@@ -469,79 +507,99 @@ def bubble_slice(backend):
     assert err <= 1e-5, err
 
 
-def column_state(sim, after_run):
-    """(backend, state, aux, tables) of the cell grid the column sweeps
-    see, as ``strip_state`` for the strip layout."""
-    if after_run:
-        backend = sim._runner.backend
-        state, aux, _ = backend.prepare(sim.state, sim.aux, sim.step_count,
-                                        sim.box)
+def cell_layout(kind, backend, state, aux):
+    """(fld, layout, kernels, plain sweep, pair counter) of the column
+    kernel's cell grid (``kind`` "column") or the band's slot-resident
+    sub-cells ("band"). Every alive row of either layout is an owned
+    particle. ``count(fld, cut2, keep)`` counts the (i, j) pairs with both
+    types alive and 1e-12 < rsq < cut2 in the sweeps' windows, filtered
+    by ``keep(pi, pj)`` when given."""
+    from tpusph_torch.ops import band_pair, pallas_pair
+
+    if kind == "column":
+        cg = backend.colgrid
+        fld, _, _ = pallas_pair.pack_dense(state, aux, cg)
+        reach = band_pair.live_reach(fld, cg.cap)
+        nblocks = cg.ncols * cg.ncz
+        step = max(1, band_pair._PLAIN_CHUNK // (reach * reach * 3
+                                                 * cg.nnbr))
+
+        def pairs(fld, b0, b1, cut2):
+            return pallas_pair._column_pairs(fld, cg, b0, b1, cut2, reach)
+
+        layout, mod, plain = cg, pallas_pair, pallas_pair.plain_column_sweep
     else:
-        backend = sim._ensure_runner().backend
-        sim._build_state()
-        state, aux = backend.init_aux(sim.state, sim.box)
-    return backend, state, aux, sim.tables.stacked(sim.device)
+        geom = backend.geom
+        fld = band_pair.pack_fields(state)
+        reach = band_pair.live_reach(fld, geom.c)
+        nblocks = geom.ncols * geom.ngroups
+        step = max(1, band_pair._PLAIN_CHUNK // (
+            geom.G * reach * geom.nnbr * (geom.G + 2 * geom.k) * reach))
+
+        def pairs(fld, b0, b1, cut2):
+            return band_pair._band_pairs(fld, geom, b0, b1, cut2, reach)
+
+        layout, mod, plain = geom, band_pair, band_pair.plain_band_sweep
+
+    def count(fld, cut2, keep=None):
+        total = 0
+        for b0 in range(0, nblocks, step):
+            pi, pj, _ = pairs(fld, b0, min(b0 + step, nblocks), cut2)
+            total += pi.numel() if keep is None else int(keep(pi, pj).sum())
+        return total
+
+    return fld, layout, mod.KERNELS, plain, count
 
 
-def column_pairs(fld, cg, cut2, keep=None):
-    """(i, j) pairs with both types alive and 1e-12 < rsq < cut2 in the
-    column sweeps' cell windows (every alive row of the cell grid is an
-    owned particle); ``keep(pi, pj)`` filters them further."""
-    from tpusph_torch.ops import pallas_pair
-    ncells = cg.ncols * cg.ncz
-    reach = pallas_pair.live_reach(fld, cg)
-    cstep = max(1, pallas_pair._PLAIN_CHUNK // (reach * reach * 3
-                                                * cg.nnbr))
-    total = 0
-    for c0 in range(0, ncells, cstep):
-        pi, pj, _ = pallas_pair._column_pairs(
-            fld, cg, c0, min(c0 + cstep, ncells), cut2, reach)
-        total += pi.numel() if keep is None else int(keep(pi, pj).sum())
-    return total
-
-
-def hold_column_to_plain(sim, after_run=False, reps=10):
-    """Each column kernel against its plain version on the cell grid of
-    ``column_state``, fed as ``PallasBackend.force_stage`` feeds them (rho
-    patched before cgrad, cg before force); after a main path also the
-    cell-grid vapor query's time per firing. Returns {name: report}."""
+def hold_cells_to_plain(sim, kind, after_run=False, reps=10):
+    """Each column (``kind`` "column") or band ("band") kernel against its
+    plain version on the layout of ``layout_state``, fed as the backend's
+    force stage feeds them (rho patched before cgrad, cg before force);
+    after a main path with phase change also the cell-grid vapor query's
+    time per firing. Returns {name: report}."""
     import torch
-    from tpusph_torch.ops import pallas_pair
     from tpusph_torch.ops.rows import (
         OCGX, OCGY, ODE, ODRHO, OFX, OFY, OFZ, ORHO, RCGX, RCGZ, RM, RRHO,
         RTYPE)
 
-    backend, state, aux, tabs = column_state(sim, after_run)
-    cg, spec = backend.colgrid, sim.spec
-    fld, _, _ = pallas_pair.pack_dense(state, aux, cg)
+    backend, state, aux, tabs = layout_state(sim, after_run)
+    fld, layout, kernels, plain, count = cell_layout(kind, backend, state,
+                                                     aux)
+    spec = sim.spec
     alive = fld[RTYPE] > 0.5
     n_own = int(alive.sum())
-    print(f"  cell grid {cg.ncols} columns x {cg.ncz} cells, cap {cg.cap}, "
-          f"{cg.n_slots} slots, {n_own} particles, overflow "
-          f"{int(aux.overflow.sum())}")
+    if kind == "column":
+        print(f"  cell grid {layout.ncols} columns x {layout.ncz} cells, cap "
+              f"{layout.cap}, {layout.n_slots} slots, {n_own} particles, "
+              f"overflow {int(aux.overflow.sum())}")
+    else:
+        print(f"  band geometry {layout.ncols} columns x {layout.nsub} "
+              f"sub-cells (G {layout.G}, c {layout.c}, k {layout.k}; window "
+              f"{layout.w_real} rows), {layout.n_slots} slots, {n_own} "
+              f"particles, overflow {int(aux.overflow.sum())}")
     assert int(aux.overflow.sum()) == 0
     cut2 = tabs.cutmax2["force"]
     typ = fld[RTYPE]
-    npairs = column_pairs(fld, cg, cut2)
+    npairs = count(fld, cut2)
     # the colour gradient is summed over pairs of unlike types only
-    mixed = column_pairs(fld, cg, cut2, keep=lambda pi, pj: typ[pi] != typ[pj])
+    mixed = count(fld, cut2, keep=lambda pi, pj: typ[pi] != typ[pj])
     print(f"  live pairs {npairs} ({npairs / n_own:.1f} per particle), of "
           f"unlike types {mixed}")
     rows = {"rho": (ORHO,), "cgrad": (OCGX, OCGY, ODE),
             "force": (OFX, OFY, OFZ, ODRHO, ODE)}
     report = {}
     for sweep in ("rho", "cgrad", "force"):
-        kern = pallas_pair.KERNELS[sweep]
+        kern = kernels[sweep]
 
         def run_kernel():
-            return kern(fld, tabs, cg, spec)
+            return kern(fld, tabs, layout, spec)
 
         def run_plain():
-            return pallas_pair.plain_column_sweep(sweep, fld, tabs, cg, spec)
+            return plain(sweep, fld, tabs, layout, spec)
 
         out_k = run_kernel()
         out_p = run_plain()
-        errs = compare_rows(f"column {sweep}", sweep, out_k, out_p, alive,
+        errs = compare_rows(f"{kind} {sweep}", sweep, out_k, out_p, alive,
                             rows[sweep])
         if sweep == "rho":
             ops = PAIR_OPS["rho"] * npairs
@@ -551,19 +609,19 @@ def hold_column_to_plain(sim, after_run=False, reps=10):
             # the capillary terms need the pairs where either side carries
             # a colour gradient
             cgn = (fld[RCGX:RCGZ + 1] != 0).any(0)
-            st_pairs = column_pairs(fld, cg, cut2,
-                                    keep=lambda pi, pj: cgn[pi] | cgn[pj])
+            st_pairs = count(fld, cut2, keep=lambda pi, pj: cgn[pi] | cgn[pj])
             print(f"  pairs with a colour gradient on either side "
                   f"{st_pairs}")
             ops = PAIR_OPS["force"] * npairs + PAIR_OPS["force_st"] * st_pairs
         report[sweep] = dict(max_abs_err=max(errs), **timed(
-            f"column {sweep}", run_kernel, run_plain, n_own, ops, reps,
+            f"{kind} {sweep}", run_kernel, run_plain, n_own, ops, reps,
             kind=sweep))
         if sweep == "rho":
             total = out_p[ORHO] * fld[RM] if spec.rhosum_nd else out_p[ORHO]
             fld[RRHO] = torch.where(alive, total, fld[RRHO])
         elif sweep == "cgrad":
-            fld[RCGX:RCGZ + 1] = out_p[[OCGX, OCGY, ODE]]
+            fld[RCGX:RCGZ + 1] = torch.where(alive, out_p[[OCGX, OCGY, ODE]],
+                                             0.0)
     if after_run and sim.phase_change_config is not None:
         cfg = sim.phase_change_config
         ms = cuda_ms(lambda: backend.vapor_neighbor(
@@ -575,21 +633,25 @@ def hold_column_to_plain(sim, after_run=False, reps=10):
     return report
 
 
-def retry_sim(device):
-    """tests/test_torch_margin_decay.py's retry system: a 6 x 6 x 36
+def retry_sim(device, phase_change=True):
+    """tests/test_torch_margin_decay.py's retry system: a 6 x 6 x nz
     lattice, heat conduction, a rebuild and an observation every 2 steps,
-    fix phase_change on (no vapour type present: no event fires, but the
-    fallback is the column kernel), and margin floors so high that no
-    strip geometry fits."""
+    and margin floors so high that no strip geometry fits. With
+    ``phase_change`` fix phase_change is on (no vapour type present: no
+    event fires, but the fallback is the column kernel) and nz is 36;
+    without it the fallback is band, and nz is 44
+    (tests/test_torch_band_path.py: at the strip's lower column headroom
+    the 36-plane box still strips)."""
     import numpy as np
     from tpusph_torch.api import Simulation
     from tpusph_torch.ops.phase_change import PhaseChangeConfig
 
+    nz = 36 if phase_change else 44
     sim = Simulation(dim=3, screen=False, device=device)
-    sim.create_box([0, 0, 0], [6.0, 6.0, 36.0], periodic=(True,) * 3,
+    sim.create_box([0, 0, 0], [6.0, 6.0, float(nz)], periodic=(True,) * 3,
                    ntypes=1)
     ax = np.arange(6, dtype=np.float32)
-    az = np.arange(36, dtype=np.float32)
+    az = np.arange(nz, dtype=np.float32)
     g = np.stack(np.meshgrid(ax, ax, az, indexing="ij"), -1).reshape(-1, 3)
     sim.add_particles(g, np.ones(len(g), np.int32), rho=1.0,
                       e=np.where(g[:, 0] < 3.0, 1.5, 1.0).astype(np.float32),
@@ -601,21 +663,24 @@ def retry_sim(device):
     sim.thermo(2)
     sim.reneigh_every = 2
     sim._strip_extra = (4096, 4096)
-    sim.configure_phase_change(PhaseChangeConfig(
-        t_threshold=2.0, latent=1.0, dm=1e-3, liquid_type=1, vapor_type=2,
-        every=2, cutoff=2.4))
+    if phase_change:
+        sim.configure_phase_change(PhaseChangeConfig(
+            t_threshold=2.0, latent=1.0, dm=1e-3, liquid_type=1,
+            vapor_type=2, every=2, cutoff=2.4))
     return sim
 
 
 def phase_ladder():
     """The backend ladder on the card: a phase-change bubble whose periodic
     z axis (10 planes, 2.5 < 4 x (cutoff + skin)) cannot strip runs on the
-    column kernel under "auto"; and the retry system abandons the strip
-    for the column kernel, then comes back to it after three calm
-    rebuilds, with the CPU run's trajectory."""
+    column kernel under "auto"; and the retry systems abandon the strip
+    for the column kernel (phase change on) and for band (phase change
+    off), then come back to it after three calm rebuilds, each with the CPU
+    run's trajectory."""
     import warnings
     import numpy as np
     from tpusph_torch.bench import build_bubble_sim
+    from tpusph_torch.ops.band_pair import BandBackend
     from tpusph_torch.ops.pallas_pair import PallasBackend
     from tpusph_torch.ops.strip_pair import StripBackend
 
@@ -630,28 +695,37 @@ def phase_ladder():
     # heat conduction alone: the force sweep is the bubble's only sweep
     read_counts(("column_force",))
 
-    es = {}
-    for dev in ("cuda", "cpu"):
-        sim = retry_sim(dev)
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            sim.run(2)
-        assert any("abandoned" in str(w.message) for w in caught)
-        first = type(sim._runner.backend).__name__
-        assert isinstance(sim._runner.backend, PallasBackend)
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            sim.run(28)
-        print(f"  retry on {dev}: {first} -> "
-              f"{type(sim._runner.backend).__name__}, extra "
-              f"{sim._strip_extra}, steps {sim.step_count}")
-        assert isinstance(sim._runner.backend, StripBackend)
-        assert sim._strip_extra == (0, 0) and sim.step_count == 30
-        es[dev] = sim.get("e")
-        assert np.isfinite(es[dev]).all()
-    err = float(np.abs(es["cuda"] - es["cpu"]).max())
-    print(f"  retry e: max |gpu - cpu| {err:.3e} (bound 5e-6)")
-    assert err <= 5e-6, err
+    for phase_change, fallback in ((True, PallasBackend),
+                                   (False, BandBackend)):
+        es = {}
+        for dev in ("cuda", "cpu"):
+            reset_counts()
+            sim = retry_sim(dev, phase_change)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                sim.run(2)
+            assert any("abandoned" in str(w.message) for w in caught)
+            first = type(sim._runner.backend).__name__
+            assert type(sim._runner.backend) is fallback, first
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                sim.run(28)
+            print(f"  retry on {dev}: {first} -> "
+                  f"{type(sim._runner.backend).__name__}, extra "
+                  f"{sim._strip_extra}, steps {sim.step_count}")
+            assert isinstance(sim._runner.backend, StripBackend)
+            assert sim._strip_extra == (0, 0) and sim.step_count == 30
+            if dev == "cuda":
+                # the fallback's force kernel and then the strip's ran (and
+                # with phase change the strip's vapor query, every 2 steps)
+                read_counts(("column_force", "strip_force", "strip_vapor")
+                            if phase_change else ("band_force", "strip_force"))
+            es[dev] = sim.get("e")
+            assert np.isfinite(es[dev]).all()
+        err = float(np.abs(es["cuda"] - es["cpu"]).max())
+        print(f"  retry via {fallback.__name__} e: max |gpu - cpu| "
+              f"{err:.3e} (bound 5e-6)")
+        assert err <= 5e-6, err
 
 
 def main() -> int:
@@ -669,64 +743,79 @@ def main() -> int:
     from tpusph_torch.bench import build_bench_sim, card_info
     from tpusph_torch.ops import cuda_build
 
+    nphases = 18
+    count = iter(range(1, nphases + 1))
+
     def phase(title, fn, *a):
-        print(title)
+        print(f"[{next(count)}/{nphases}] {title}")
         t0 = time.perf_counter()
         out = fn(*a)
         print(f"  ({time.perf_counter() - t0:.1f} s)")
         return out
 
-    print("[1/14] device")
-    name, limit = card_info()
-    print(f"{name}, {limit}")
-    print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
-          f"devices {torch.cuda.device_count()}")
+    def device():
+        name, limit = card_info()
+        print(f"{name}, {limit}")
+        print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
+              f"devices {torch.cuda.device_count()}")
 
-    lib = phase("[2/14] build", cuda_build.load)
+    phase("device", device)
+    lib = phase("build", cuda_build.load)
     print(lib.ptxas_log.strip())
 
     n = args.particles
     sim = build_bench_sim(n, mode="dynamic", device="cuda")
-    reports = [phase(f"[3/14] dynamic: sweeps vs plain on the initial "
-                     f"layout at {n} particles", hold_to_plain, sim,
-                     KERNELS[:3])]
-    _, dynamic = phase("[4/14] dynamic main path: run_bench", phase_main,
-                       sim, "dynamic", args.steps, args.windows)
-    reports.append(phase("[5/14] dynamic: sweeps vs plain on the layout "
-                         "after the main path", hold_to_plain, sim,
-                         KERNELS[:3], True))
+    reports = [phase(f"dynamic: sweeps vs plain on the initial layout at {n} "
+                     "particles", hold_to_plain, sim, KERNELS[:3])]
+    _, dynamic = phase("dynamic main path: run_bench", phase_main, sim,
+                       "dynamic", args.steps, args.windows)
+    reports.append(phase("dynamic: sweeps vs plain on the layout after the "
+                         "main path", hold_to_plain, sim, KERNELS[:3], True))
     del sim
     sim = build_bench_sim(n, mode="boiling", device="cuda")
-    reports.append(phase(f"[6/14] boiling: all four kernels vs plain on the "
-                         f"initial layout at {n} particles", hold_to_plain,
-                         sim, KERNELS))
-    launches, boiling = phase("[7/14] boiling main path: run_bench",
-                              phase_main, sim, "boiling", args.steps,
-                              args.windows)
+    reports.append(phase(f"boiling: all four kernels vs plain on the initial "
+                         f"layout at {n} particles", hold_to_plain, sim,
+                         KERNELS))
+    launches, boiling = phase("boiling main path: run_bench", phase_main,
+                              sim, "boiling", args.steps, args.windows)
     # the kernels' times and bounds in the JSON line: the layout the
     # boiling path's timed windows launch them on
-    last = phase("[8/14] boiling: all four kernels vs plain on the layout "
-                 "after the main path", hold_to_plain, sim, KERNELS, True)
+    last = phase("boiling: all four kernels vs plain on the layout after "
+                 "the main path", hold_to_plain, sim, KERNELS, True)
     reports.append(last)
     del sim
-    phase("[9/14] slices: GPU kernels vs CPU plain versions", phase_slices)
+    phase("slices: GPU kernels vs CPU plain versions", phase_slices)
 
     sim = build_bench_sim(n, mode="boiling", device="cuda", backend="pallas")
-    col_reports = [phase(f"[10/14] column: the three column kernels vs "
-                         f"plain on the initial cell grid at {n} particles",
-                         hold_column_to_plain, sim)]
+    col_reports = [phase(f"column: the three column kernels vs plain on the "
+                         f"initial cell grid at {n} particles",
+                         hold_cells_to_plain, sim, "column")]
     col_launches, column = phase(
-        "[11/14] column boiling main path: run_bench(backend=\"pallas\")",
+        "column boiling main path: run_bench(backend=\"pallas\")",
         phase_main, sim, "boiling", args.steps, args.windows, "pallas")
-    col_last = phase("[12/14] column: kernels vs plain on the cell grid "
-                     "after the main path", hold_column_to_plain, sim, True)
+    col_last = phase("column: kernels vs plain on the cell grid after the "
+                     "main path", hold_cells_to_plain, sim, "column", True)
     col_reports.append(col_last)
     column["vapor_query_ms"] = col_last["vapor_query_ms"]
     del sim
-    phase("[13/14] column slice: GPU kernels vs CPU plain versions",
-          bubble_slice, "pallas")
-    phase("[14/14] ladder: cannot strip -> column kernel; abandon -> "
-          "column -> strip retry", phase_ladder)
+    phase("column slice: GPU kernels vs CPU plain versions", bubble_slice,
+          "pallas")
+
+    sim = build_bench_sim(n, mode="dynamic", device="cuda", backend="band")
+    band_reports = [phase(f"band: the three band kernels vs plain on the "
+                          f"initial slot layout at {n} particles",
+                          hold_cells_to_plain, sim, "band")]
+    band_launches, band = phase(
+        "band dynamic main path: run_bench(backend=\"band\")", phase_main,
+        sim, "dynamic", args.steps, args.windows, "band")
+    band_last = phase("band: kernels vs plain on the slot layout after the "
+                      "main path", hold_cells_to_plain, sim, "band", True)
+    band_reports.append(band_last)
+    del sim
+    phase("band slice: GPU kernels vs CPU plain versions", dynamic_slice,
+          "band")
+    phase("ladder: cannot strip -> column kernel; abandon -> column or band "
+          "-> strip retry", phase_ladder)
 
     kernels = []
     for s in KERNELS:
@@ -736,16 +825,20 @@ def main() -> int:
             replaces=REPLACES[key], launches=launches[key], library_ms=None,
             **{**last[s], "max_abs_err": max(
                 r[s]["max_abs_err"] for r in reports if s in r)}))
-    for s in ("rho", "cgrad", "force"):
-        key = f"column_{s}"
-        kernels.append(dict(
-            name=f"{key}_sweep", route="cuda", source=SOURCES["column"],
-            replaces=REPLACES[key], launches=col_launches[key],
-            library_ms=None, **{**col_last[s], "max_abs_err": max(
-                r[s]["max_abs_err"] for r in col_reports)}))
+    for kind, counts, after, reps in (
+            ("column", col_launches, col_last, col_reports),
+            ("band", band_launches, band_last, band_reports)):
+        for s in ("rho", "cgrad", "force"):
+            key = f"{kind}_{s}"
+            kernels.append(dict(
+                name=f"{key}_sweep", route="cuda", source=SOURCES[kind],
+                replaces=REPLACES[key], launches=counts[key],
+                library_ms=None, **{**after[s], "max_abs_err": max(
+                    r[s]["max_abs_err"] for r in reps)}))
     print(json.dumps(dynamic))
     print(json.dumps(boiling))
     print(json.dumps(column))
+    print(json.dumps(band))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

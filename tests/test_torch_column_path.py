@@ -3,7 +3,7 @@
 kernels, the cell-grid sort and rebuild, the cell-grid vapor query, fix
 phase_change), against the JAX package's ``Simulation`` on its dense
 O(N^2) backend; and the backend ladder that sends a phase-change run which
-cannot strip to the column kernel.
+cannot strip (or asks for band) to the column kernel.
 
 The system is tests/test_phase_change.py's 12^3 vapour bubble
 (``tpusph_torch.bench.build_bubble_sim``) with prob = 1 and
@@ -24,6 +24,7 @@ from tpusph.ops.phase_change import PhaseChangeConfig as JConfig
 from tpusph_torch.bench import BUBBLE_DX as DX
 from tpusph_torch.bench import BUBBLE_SIDE as N_SIDE
 from tpusph_torch.bench import build_bubble_sim
+from tpusph_torch.ops.band_pair import BandBackend
 from tpusph_torch.ops.pallas_pair import PallasBackend
 
 from test_torch_phase_change import inserted_x, originals
@@ -89,7 +90,8 @@ def test_phase_change_that_cannot_strip_takes_column_kernel():
     bands would overlap, so no strip geometry exists. Under "auto" a
     phase-change run goes to the column kernel and fires events; the JAX
     package's ladder (its TPU form, "strip") picks its column kernel on
-    the same inputs; a run without phase change raises, naming band."""
+    the same inputs; a run without phase change takes band, with the band
+    geometry the JAX package's chooser gives on the same inputs."""
     sim = build_bubble_sim(device="cpu", backend="auto", nz=NZ_SHORT)
     n0 = sim.natoms
     sim.run(4)
@@ -104,8 +106,11 @@ def test_phase_change_that_cannot_strip_takes_column_kernel():
     plain = build_bubble_sim(device="cpu", backend="auto", nz=NZ_SHORT)
     plain.remove_end_of_step_hook("phase_change")
     plain.phase_change_config = None
-    with pytest.raises(NotImplementedError, match="band"):
-        plain.run(1)
+    plain.run(1)
+    assert isinstance(plain._runner.backend, BandBackend)
+    ref.remove_end_of_step_hook("phase_change")
+    ref.phase_change_config = None
+    assert tuple(plain._band_geom) == tuple(ref._select_band_backend().geom)
 
 
 def test_cell_overflow_remeasures_with_boosted_cap():
@@ -126,8 +131,19 @@ def test_cell_overflow_remeasures_with_boosted_cap():
     assert sim.step_count == 2 and np.isfinite(sim.get("e")).all()
 
 
+def test_phase_change_under_band_takes_column_kernel():
+    """``backend_name = "band"`` on a phase-change run: band has no
+    particle pool, so the ladder falls through to the column kernel, as
+    the JAX package's does (its band rung returns None for the run)."""
+    sim = build_bubble_sim(device="cpu", backend="band")
+    n0 = sim.natoms
+    sim.run(2)
+    assert isinstance(sim._runner.backend, PallasBackend)
+    assert sim._band_geom is None and sim.natoms > n0
+    assert jax_sim(backend="band")._select_band_backend() is None
+
+
 @pytest.mark.parametrize("name,error,match", [
-    ("band", NotImplementedError, "Queue 2 item 5"),
     ("cellgrid", NotImplementedError, "Queue 1 item 11"),
     ("dense", NotImplementedError, "dense"),
     ("bogus", ValueError, "unknown backend"),

@@ -1,6 +1,7 @@
-"""The CUDA strip sweeps (tpusph_torch/csrc/strip_sweeps.cu) and column
-sweeps (tpusph_torch/csrc/column_sweeps.cu) against their plain PyTorch
-versions, on the card, for every physics branch the kernels carry: Tait /
+"""The CUDA strip sweeps (tpusph_torch/csrc/strip_sweeps.cu), column
+sweeps (tpusph_torch/csrc/column_sweeps.cu) and band sweeps
+(tpusph_torch/csrc/band_sweeps.cu) against their plain PyTorch versions,
+on the card, for every physics branch the kernels carry: Tait /
 Morris / ideal gas / LJ, continuity, heat conduction with and without
 T_sat pinning, CSF, the virial, rhosum in both forms, scalar-folded tables
 with a shared cutoff, all four smoothing kernels, 2D and 3D, periodic and
@@ -26,7 +27,7 @@ import pytest
 import torch
 
 from tpusph_torch import grid, kernels
-from tpusph_torch.ops import pallas_pair, strip_pair
+from tpusph_torch.ops import band_pair, pallas_pair, strip_pair
 from tpusph_torch.ops.band_pair import pack_fields
 from tpusph_torch.ops.rows import (
     OCGX, OCGY, ODE, ODRHO, OFX, OFY, OFZ, ORHO, RCGX, RCGZ, RM, RRHO, RSLOT,
@@ -265,6 +266,83 @@ def test_column_force_stage_on_card_matches_cpu(device):
                                              aux, istep=0)
         moved = {k: w.launches - n0[k]
                  for k, w in pallas_pair.KERNELS.items()}
+        assert moved == {k: int(dev.type == "cuda") for k in moved}, moved
+    for field, rtol in (("rho", 2e-5), ("f", 2e-4), ("drho", 2e-4),
+                        ("de", 2e-4)):
+        a = getattr(outs["cpu"], field)
+        b = getattr(outs["cuda"], field).cpu()
+        err = float((a - b).abs().max())
+        assert err <= rtol * float(a.abs().max()), (field, err)
+
+
+def band_layout(dim, periodic, seed, device, name="bench", col_open=False):
+    """The lattice in the band layout; ``col_open`` makes the column axis
+    (z) non-periodic while the plane axes stay periodic."""
+    st, box, tables = lattice(dim, 12 if dim == 3 else 40, periodic, seed,
+                              device, uniform=name == "bench_folded")
+    if col_open:
+        box = Box.create(box.lo.cpu().numpy(), box.hi.cpu().numpy(),
+                         (True, True, False), device=device)
+    x = st.x[st.alive].cpu().numpy()
+    geom = band_pair.choose_band_geometry(box, tables.max_cut(), dim, 0.2,
+                                          x=x)
+    assert geom is not None
+    backend = band_pair.BandBackend(geom, ntypes=2)
+    st, aux = backend.init_aux(st, box)
+    assert int(aux.overflow.sum()) == 0
+    return backend, st, aux, tables
+
+
+@pytest.mark.parametrize("name,dim,periodic,col_open", [
+    ("bench", 3, True, False), ("bench", 3, False, False),
+    ("bench", 3, True, True), ("morris_virial", 3, True, False),
+    ("idealgas_cubic", 3, False, False), ("lj_quintic", 3, True, True),
+    ("heatpc_wendland_st", 3, True, False), ("bench_folded", 3, True, False),
+    ("bench", 2, True, False), ("heatpc_wendland_st", 2, False, False),
+])
+def test_band_kernels_match_plain_versions(device, name, dim, periodic,
+                                           col_open):
+    backend, st, aux, tables = band_layout(dim, periodic, dim + 27, device,
+                                           name, col_open)
+    geom = backend.geom
+    spec = PhysicsSpec(dim=dim, **SPECS[name])
+    tabs = tables.stacked(device)
+    fld = pack_fields(st)
+    alive = st.alive
+    for sweep in ("rho", "cgrad", "force"):
+        kern = band_pair.KERNELS[sweep]
+        n0 = kern.launches
+        out_k = kern(fld, tabs, geom, spec)
+        torch.cuda.synchronize()
+        assert kern.launches == n0 + 1
+        out_p = band_pair.plain_band_sweep(sweep, fld, tabs, geom, spec)
+        check_rows(sweep, out_k, out_p, alive)
+        # dead slots are written as zeros
+        assert float(out_k[:, ~alive].abs().max()) == 0.0
+        # feed the next sweep as the force stage does
+        if sweep == "rho":
+            total = out_p[ORHO] * st.rmass if spec.rhosum_nd else out_p[ORHO]
+            fld[RRHO] = torch.where(alive, total, fld[RRHO])
+        elif sweep == "cgrad":
+            cg = torch.stack([out_p[OCGX], out_p[OCGY], out_p[ODE]])
+            fld[RCGX:RCGZ + 1] = torch.where(alive, cg, 0.0)
+    if SPECS[name].get("surface_tension"):
+        # no mixed-phase gate: the colour gradient is nonzero somewhere
+        assert float(fld[RCGX:RCGZ + 1].abs().max()) > 0.0
+
+
+def test_band_force_stage_on_card_matches_cpu(device):
+    """One BandBackend.force_stage of the bench spec: the kernels on the
+    card against the plain versions on the CPU, every launch counted."""
+    outs = {}
+    for dev in (device, torch.device("cpu")):
+        backend, st, aux, tables = band_layout(3, True, 5, dev)
+        spec = PhysicsSpec(dim=3, **SPECS["bench"])
+        n0 = {k: w.launches for k, w in band_pair.KERNELS.items()}
+        outs[dev.type] = backend.force_stage(st, tables.stacked(dev), spec,
+                                             aux, istep=0)
+        moved = {k: w.launches - n0[k]
+                 for k, w in band_pair.KERNELS.items()}
         assert moved == {k: int(dev.type == "cuda") for k in moved}, moved
     for field, rtol in (("rho", 2e-5), ("f", 2e-4), ("drho", 2e-4),
                         ("de", 2e-4)):

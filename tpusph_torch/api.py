@@ -10,10 +10,10 @@ Ported: create_box, add_particles, the pair_* styles of the bench
 (rhosum, taitwater, heatconduction with the /phasechange variant,
 surfacetension), tables, thermo, the end-of-step hook registry and
 configure_phase_change (fix phase_change), the backend ladder in its TPU
-form (strip, then the column kernel for a phase-change run that cannot
-strip), run (with the violation re-choice, the margin decay and the strip
+form (strip, then band for a run without phase change, then the column
+kernel), run (with the violation re-choice, the margin decay and the strip
 retry after an abandoned geometry), get, natoms. Not ported yet (ROADMAP):
-the dense, cellgrid-sweep and band backends, the script layer, dumps and
+the dense and cellgrid-sweep backends, the script layer, dumps and
 restarts.
 
 Entry points run on the card: ``Simulation()`` takes the CUDA device and
@@ -33,6 +33,7 @@ import torch
 
 from tpusph_torch import grid as gridlib
 from tpusph_torch.io.thermo import ThermoWriter
+from tpusph_torch.ops.band_pair import BandBackend, choose_band_geometry
 from tpusph_torch.ops.pallas_pair import PallasBackend
 from tpusph_torch.ops.phase_change import (
     PhaseChangeConfig, make_end_of_step_hook,
@@ -48,7 +49,6 @@ from tpusph_torch.state import (
 )
 
 # the ports that the backend ladder still waits for
-_BAND_ITEM = "the band backend (ROADMAP Queue 2 item 5)"
 _CELLGRID_ITEM = "the cell grid's XLA sweeps (ROADMAP Queue 1 item 11)"
 _DENSE_ITEM = "the dense O(N^2) backend (ROADMAP Queue 1 items 3-4)"
 
@@ -102,9 +102,9 @@ class Simulation:
         self.step_count: int = 0
         self.time_acc: float = 0.0
         self.capacity_pad: int = 0      # extra dead slots (phase-change pool)
-        # "auto" (strip, then the column kernel for a phase-change run that
-        # cannot strip), "strip" (the same ladder) or "pallas" (the column
-        # kernel on the cell grid)
+        # "auto" (strip, then band for a run without phase change, then the
+        # column kernel), "strip" (the same ladder), "band" (band, then the
+        # column kernel) or "pallas" (the column kernel on the cell grid)
         self.backend_name: str = "auto"
         self.cell_cap: Optional[int] = None  # None = measured occupancy
         self.neighbor_skin: Optional[float] = None  # `neighbor <skin> bin`
@@ -146,6 +146,9 @@ class Simulation:
         self._strip_retry_done = False
         self._retry_obs = 0
         self._retry_nbuilds = None
+        # the band geometry and the chooser inputs it was measured under
+        self._band_geom = None
+        self._band_geom_key = None
         # the cell grid's measured capacity, its cache key and the
         # headroom boost each overflow re-choice applies
         self._mcap = None
@@ -298,34 +301,35 @@ class Simulation:
         """The backend ladder of ``tpusph``'s ``_select_backend`` in its TPU
         form, the card taking the TPU's place: the strip backend first;
         where no strip geometry fits, a phase-change run takes the column
-        kernel (``PallasBackend``: the band backend has no particle pool),
-        and a run without phase change goes to band, which is not ported
-        yet. ``backend_name = "pallas"`` takes the column kernel for any
+        kernel (``PallasBackend``: the band backend has no particle pool)
+        and a run without phase change takes band; where no band geometry
+        fits either, the column kernel. ``backend_name = "band"`` enters
+        the ladder at band, ``"pallas"`` takes the column kernel for any
         run. The reference's rung below 2,048 particles (the dense O(N^2)
         backend) has no port yet, so ``auto`` keeps the strip for small
         runs too."""
         name = self.backend_name
         if self.tables.ntypes > 6:
             raise NotImplementedError(
-                f"{self.tables.ntypes} particle types: the strip and column "
-                f"kernels take at most 6; more go to {_CELLGRID_ITEM}")
+                f"{self.tables.ntypes} particle types: the strip, band and "
+                f"column kernels take at most 6; more go to {_CELLGRID_ITEM}")
         if name == "auto":
             name = "strip"
         if name == "strip":
             backend = self._select_strip_backend()
             if backend is not None:
                 return backend
-            if self.phase_change_config is None:
-                raise NotImplementedError(
-                    "no strip geometry fits this box and particle "
-                    f"distribution; a run without phase change falls back "
-                    f"to {_BAND_ITEM}")
+            name = "pallas" if self.phase_change_config is not None \
+                else "band"
+        if name == "band":
+            backend = self._select_band_backend()
+            if backend is not None:
+                return backend
             name = "pallas"
         if name == "pallas":
             return self._select_pallas_backend()
-        if name in ("band", "cellgrid", "dense"):
-            item = {"band": _BAND_ITEM, "cellgrid": _CELLGRID_ITEM,
-                    "dense": _DENSE_ITEM}[name]
+        if name in ("cellgrid", "dense"):
+            item = {"cellgrid": _CELLGRID_ITEM, "dense": _DENSE_ITEM}[name]
             raise NotImplementedError(f"backend {name!r}: {item}")
         raise ValueError(f"unknown backend {name!r}")
 
@@ -370,6 +374,39 @@ class Simulation:
             self._backend_cache = dict(key=key, backend=StripBackend(
                 geom, ntypes=self.tables.ntypes,
                 rebuild_every=self.reneigh_every, device=self.device))
+            self.aux = None
+        return self._backend_cache["backend"]
+
+    def _select_band_backend(self) -> Optional[BandBackend]:
+        """The band backend for the current particle distribution, or None
+        where the run cannot band: a phase-change run (band has no particle
+        pool) or no band geometry fits (``tpusph``'s
+        ``_select_band_backend``). The geometry is measured once per
+        (cutoff, skin, particle-count growth bucket, dim), so that it stays
+        stable across ``run`` calls; an overflow re-choice clears the key
+        and re-measures from the evolved state."""
+        if self.phase_change_config is not None:
+            return None
+        cutoff = self.tables.max_cut()
+        skin = self._skin(cutoff)
+        prev = self._band_geom_key[2] if self._band_geom_key else 0
+        gkey = (cutoff, skin, _growth_bucket(self.natoms, prev),
+                self.spec.dim)
+        if self._band_geom_key != gkey:
+            if self.state is not None:
+                self._pull_state()
+            self._band_geom_key = gkey
+            self._band_geom = choose_band_geometry(
+                self.box, cutoff, self.spec.dim, skin,
+                x=np.asarray(self._staged["x"]))
+        geom = self._band_geom
+        if geom is None:
+            return None
+        key = ("band", geom, self.reneigh_every)
+        if self._backend_cache.get("key") != key:
+            self._backend_cache = dict(key=key, backend=BandBackend(
+                geom, ntypes=self.tables.ntypes,
+                rebuild_every=self.reneigh_every))
             self.aux = None
         return self._backend_cache["backend"]
 
@@ -491,8 +528,9 @@ class Simulation:
         absolute floor (the reference's first-violation path), and the
         cell capacity's headroom grows x1.5 (at most x4). When the margin
         floor later shows persistent slack (``_maybe_decay_margins``), or
-        an abandoned strip has seen three calm rebuilds on the column
-        kernel (``_maybe_retry_strip``), re-choose the same way."""
+        an abandoned strip has seen three calm rebuilds on its fallback,
+        band or the column kernel (``_maybe_retry_strip``), re-choose the
+        same way."""
         attempts = 0
         remaining = nsteps
         pre = True
@@ -562,6 +600,7 @@ class Simulation:
         self._pull_state()
         self._rebuilds_before = self.rebuilds
         self._strip_geom_key = None
+        self._band_geom_key = None
         self._mcap_key = None
         self._backend_cache = {}
         self._runner = None
@@ -634,11 +673,12 @@ class Simulation:
 
     def _maybe_retry_strip(self, aux):
         """The strip retry after an abandoned geometry (``tpusph``'s
-        api.py:977-1011): after _DECAY_K calm rebuilds on the column kernel
-        (calm: the overflow guard, which runs first, did not fire), re-choose
-        the strip from fresh measures, the floors reset. One retry per
-        violation episode: a second abandonment stays abandoned until a
-        new violation re-arms the observer."""
+        api.py:977-1011): after _DECAY_K calm rebuilds on the fallback
+        backend, band for a run without phase change or the column kernel
+        for one with it (calm: the overflow guard, which runs first, did
+        not fire), re-choose the strip from fresh measures, the floors
+        reset. One retry per violation episode: a second abandonment stays
+        abandoned until a new violation re-arms the observer."""
         if not self._strip_abandoned or aux is None \
                 or self._strip_retry_done:
             return
@@ -759,9 +799,9 @@ class Simulation:
 
     @property
     def rebuilds(self) -> int:
-        """Rebuilds (strip or cell-grid builds) over the simulation's life,
-        re-chosen geometries included (each layout's aux counts its own
-        from 1)."""
+        """Rebuilds (strip, band or cell-grid builds) over the simulation's
+        life, re-chosen geometries included (each layout's aux counts its
+        own from 1)."""
         own = int(self.aux.nbuilds.sum()) if self.aux is not None else 0
         return self._rebuilds_before + own
 

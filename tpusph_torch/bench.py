@@ -3,7 +3,8 @@ configuration of ``tpusph/bench.py`` (3D periodic two-phase box: rhosum +
 taitwater + heat conduction + CSF surface tension, a vapour sphere in
 liquid; in ``boiling`` mode with fix phase_change), driven through
 ``Simulation.run`` on the backend ``backend`` names (``auto``: the strip;
-``pallas``: the column kernel on the cell grid).
+``band``: the band backend for a run without phase change; ``pallas``: the
+column kernel on the cell grid).
 
 The JSON keys are the reference's, plus where the number was taken: torch
 and CUDA versions, the device's name and its power limit. There is no
@@ -19,6 +20,7 @@ import time
 import numpy as np
 import torch
 
+from tpusph_torch.ops.band_pair import BandBackend
 from tpusph_torch.ops.pallas_pair import PallasBackend
 
 BASELINE_NODE_PSPS = 5.0e7  # estimated reference single-node particle-steps/s
@@ -247,11 +249,12 @@ def run_bench(n_particles: int = 1_000_000, n_steps: int = 50, dim: int = 3,
                          "+CSF+fix phase_change"}[mode]
     name, limit = card_info() if sim.device.type == "cuda" \
         else (sim.device.type, "not measured")
+    backend_obj = sim._runner.backend
     return {
         "metric": f"particle-steps/sec/chip @ {n} particles "
                   f"({dim}D multiphase: {styles}, backend={backend})",
         # the backend the timed windows ran on
-        "backend": type(sim._runner.backend).__name__,
+        "backend": type(backend_obj).__name__,
         "mode": mode,
         "value": round(psps, 1),
         "unit": "particle-steps/s",
@@ -272,9 +275,13 @@ def run_bench(n_particles: int = 1_000_000, n_steps: int = 50, dim: int = 3,
         "geometry_decays": sim._strip_decays,
         "warmup_windows": warmup_windows,
         "strip_w": sim._strip_geom.w if sim._strip_geom else None,
-        "cell_cap": (sim._runner.backend.geom.cap
-                     if isinstance(sim._runner.backend, PallasBackend)
-                     else None),
+        "cell_cap": (backend_obj.geom.cap
+                     if isinstance(backend_obj, PallasBackend) else None),
+        # the band geometry the timed windows ran on (the strip subclasses
+        # BandBackend, so the type is compared exactly)
+        "band_geometry": ({k: getattr(backend_obj.geom, k)
+                           for k in ("G", "c", "k", "nsub", "ncx", "ncy")}
+                          if type(backend_obj) is BandBackend else None),
         "steps": n_steps,
         "particles": int(n),
         "device": str(sim.device),

@@ -1,11 +1,13 @@
 """The aux carried between steps, and the sorted cell grid — the
 counterpart of ``tpusph/grid.py``.
 
-Two layouts carry their own aux: the strip backend's ``GridData`` (the
-strip subset of the reference's ``GridData``) and the cell grid's
-``CellGridData`` (its cell fields). Both carry ``x_ref``, ``overflow`` and
-``nbuilds``, which the runner (freeze-on-overflow), the phase-change hook
-(the ``x_ref`` bump that forces a rebuild) and ``Simulation`` read.
+Three layouts carry their own aux: the strip backend's ``GridData`` (the
+strip subset of the reference's ``GridData``), the band backend's
+``BandData`` (the fields the reference's ``band_pair.build_slots`` fills)
+and the cell grid's ``CellGridData`` (its cell fields). All carry
+``x_ref``, ``overflow`` and ``nbuilds``, which the runner
+(freeze-on-overflow), the phase-change hook (the ``x_ref`` bump that
+forces a rebuild) and ``Simulation`` read.
 
 The cell grid keeps particles sorted by cell id (cells of side >= cutoff +
 skin); a sweep finds a particle's candidates in the 27 (3D) / 9 (2D)
@@ -46,6 +48,22 @@ class GridData:
     margin_need: torch.Tensor
     # per-slot three-valued mixed-phase flag (StripBackend._mixed_flags)
     mix: torch.Tensor | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class BandData:
+    """Per-rebuild device data of the band's slot-resident layout (slot =
+    sub-cell * c + rank)."""
+    cell_id: torch.Tensor       # (N,) i64 sub-cell of each slot; dead -> ncells
+    starts: torch.Tensor        # (ncells+1,) i64 first slot of each sub-cell
+    counts: torch.Tensor        # (ncells,) i64 particles binned per sub-cell
+    rank: torch.Tensor          # (N,) i64 slot within its sub-cell
+    x_ref: torch.Tensor         # (N, 3) positions at build (skin trigger)
+    overflow: torch.Tensor      # (1,) i64 particles dropped (rank >= c)
+    nbuilds: torch.Tensor       # (1,) i64 cumulative rebuild count
+    # the band has no mixed-phase flag: its sweeps always run the
+    # colour-gradient and capillary terms (the shared force stage reads it)
+    mix: None = None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,12 +1,14 @@
-"""Pair-sweep backends of the torch port: the strip backend and the column
-kernel's backend on the cell grid, with their CUDA kernels."""
+"""Pair-sweep backends of the torch port: the strip backend, the band
+backend and the column kernel's backend on the cell grid, with their CUDA
+kernels."""
 
 
 def all_kernels() -> dict:
     """Every kernel wrapper of the port by name (``strip_rho`` ...
-    ``strip_vapor``, ``column_rho`` ... ``column_force``): one registry
-    of launch counts. Imported on call, so that importing the package
-    imports no backend."""
-    from tpusph_torch.ops import pallas_pair, strip_pair
+    ``strip_vapor``, ``column_rho`` ... ``column_force``, ``band_rho`` ...
+    ``band_force``): one registry of launch counts. Imported on call, so
+    that importing the package imports no backend."""
+    from tpusph_torch.ops import band_pair, pallas_pair, strip_pair
     return {**{f"strip_{k}": w for k, w in strip_pair.KERNELS.items()},
-            **{f"column_{k}": w for k, w in pallas_pair.KERNELS.items()}}
+            **{f"column_{k}": w for k, w in pallas_pair.KERNELS.items()},
+            **{f"band_{k}": w for k, w in band_pair.KERNELS.items()}}

@@ -1,8 +1,9 @@
 """Build and bind the hand-written CUDA sweeps: the strip sweeps (rho,
 colour gradient, force and the phase-change vapor query,
-``csrc/strip_sweeps.cu``) and the column sweeps (rho, colour gradient,
-force, ``csrc/column_sweeps.cu``), which share their pair physics through
-``csrc/sph_pair.cuh``.
+``csrc/strip_sweeps.cu``), the column sweeps (rho, colour gradient,
+force, ``csrc/column_sweeps.cu``) and the band sweeps (rho, colour
+gradient, force, ``csrc/band_sweeps.cu``), which share their pair physics
+through ``csrc/sph_pair.cuh``.
 
 Each source has a plain C interface: it is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library under ``tpusph_torch/_build/`` at first
@@ -27,7 +28,8 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = {"strip": _PKG / "csrc" / "strip_sweeps.cu",
-           "column": _PKG / "csrc" / "column_sweeps.cu"}
+           "column": _PKG / "csrc" / "column_sweeps.cu",
+           "band": _PKG / "csrc" / "band_sweeps.cu"}
 HEADERS = (_PKG / "csrc" / "sph_pair.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -40,6 +42,8 @@ _VAPOR_INT_ARGS = _GEOM_ARGS + ("vtype",)
 _COLUMN_INT_ARGS = ("n_slots", "ncx", "ncy", "ncz", "cap", "dim", "per_x",
                     "per_y", "per_col", "kernel", "flags", "T1")
 _COLUMN_FLOAT_ARGS = ("lx", "ly", "lcol", "cutmax2")
+_BAND_INT_ARGS = ("n_slots", "ncx", "ncy", "nsub_pad", "G", "c", "k", "dim",
+                  "per_x", "per_y", "per_col", "kernel", "flags", "T1")
 
 
 class _Lib:
@@ -76,9 +80,10 @@ def _bind(name: str, handle: ctypes.CDLL) -> None:
         fn.argtypes = [ptr] * 5 + [i32] * len(_VAPOR_INT_ARGS) + [f32, ptr]
         fn.restype = i32
     else:
+        ints = _COLUMN_INT_ARGS if name == "column" else _BAND_INT_ARGS
         for sweep in ("rho", "cgrad", "force"):
-            fn = getattr(handle, f"column_{sweep}_launch")
-            fn.argtypes = ([ptr] * 4 + [i32] * len(_COLUMN_INT_ARGS)
+            fn = getattr(handle, f"{name}_{sweep}_launch")
+            fn.argtypes = ([ptr] * 4 + [i32] * len(ints)
                            + [f32] * len(_COLUMN_FLOAT_ARGS) + [ptr])
             fn.restype = i32
     err = getattr(handle, f"{name}_error_string")
@@ -165,3 +170,12 @@ def launch_column(sweep: str, fld, tab2, tab1, out, *, lx: float,
     (pallas_pair.ColumnSweepKernel)."""
     _call("column", f"column_{sweep}_launch", (fld, tab2, tab1, out), ints,
           _COLUMN_INT_ARGS, (lx, ly, lcol, cutmax2), fld.device)
+
+
+def launch_band(sweep: str, fld, tab2, tab1, out, *, lx: float, ly: float,
+                lcol: float, cutmax2: float, **ints) -> None:
+    """Launch one band sweep on the current stream; raises on a refused
+    launch. Tensors are checked by the caller
+    (band_pair.BandSweepKernel)."""
+    _call("band", f"band_{sweep}_launch", (fld, tab2, tab1, out), ints,
+          _BAND_INT_ARGS, (lx, ly, lcol, cutmax2), fld.device)

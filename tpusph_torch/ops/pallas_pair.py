@@ -29,14 +29,15 @@ import torch
 
 from tpusph_torch.grid import CellGridData, GridGeometry
 from tpusph_torch.ops import cuda_build
-from tpusph_torch.ops import tile_physics
-from tpusph_torch.ops.band_pair import pack_fields
+from tpusph_torch.ops.band_pair import (
+    _live_pairs, check_inputs, live_reach, pack_fields, plain_pair_sweep,
+    spec_flags,
+)
 from tpusph_torch.ops.cellgrid import CellGridBackend
 from tpusph_torch.ops.rows import (
     F_ROWS, OCGX, OCGY, ODE, ODRHO, OFX, OFY, OFZ, ORHO, OVIR, RCGX, RCGZ,
-    RM, RRHO, RTYPE, RX, RY, RZ,
+    RM, RRHO, RTYPE,
 )
-from tpusph_torch.ops.strip_pair import check_inputs, spec_flags
 from tpusph_torch.params import DeviceTables, PhysicsSpec
 from tpusph_torch.state import Box, ParticleState
 
@@ -140,57 +141,22 @@ def _column_neighbors(cg: ColumnGrid):
             shift.astype(np.float32))
 
 
-# candidate (i slot, j slot) entries per chunk of the plain sweep: bounds
-# its temporaries at any pool size
-_PLAIN_CHUNK = 1 << 25
-_FIELD_ROWS = {"rho": (RX, RY, RZ, RM, RTYPE, RRHO),
-               "cgrad": (RX, RY, RZ, RM, RTYPE, RRHO),
-               "force": tuple(range(F_ROWS))}
-_OUT_ROWS = {"rho": (ORHO,), "cgrad": (OCGX, OCGY, ODE),
-             "force": (OFX, OFY, OFZ, ODRHO, ODE, OVIR)}
-
-
-def live_reach(fld: torch.Tensor, cg: ColumnGrid) -> int:
-    """One past the last rank that holds a live row in any cell: the ranks
-    a sweep has to look at (one host sync)."""
-    live = (fld[RTYPE].reshape(-1, cg.cap) > 0.5).any(0).nonzero()
-    return int(live[-1]) + 1 if live.numel() else 0
-
-
 def _column_pairs(fld: torch.Tensor, cg: ColumnGrid, c0: int, c1: int,
                   cutmax2: float, reach: int):
-    """(i slot, j slot, shift (Q, 3)) of every pair of i cells [c0, c1)
-    that the kernel's windows hold with both types alive and
-    1e-12 < rsq < cutmax2, rsq formed from x_i - (x_j + shift) as the
-    kernel forms it. Only ranks below ``reach`` (``live_reach``) are
-    looked at."""
+    """The live pairs (``band_pair._live_pairs``) of the i cells [c0, c1)
+    over the kernel's 27 (3D) / 9 (2D) neighbour cells with their image
+    shift. Only ranks below ``reach`` (``live_reach``) are looked at."""
     dev = fld.device
     cap = cg.cap
     jcell, shift = (torch.as_tensor(a, device=dev)
                     for a in _column_neighbors(cg))
-    cells = torch.arange(c0, c1, device=dev)
     k = torch.arange(reach, device=dev)
-    islot = cells[:, None] * cap + k                          # (C, reach)
+    islot = torch.arange(c0, c1, device=dev)[:, None] * cap + k  # (C, reach)
     jc = jcell[c0:c1]                                         # (C, S)
     jslot = (jc.clamp(min=0)[:, :, None] * cap + k).flatten(1)  # (C, M)
     jok = (jc >= 0)[:, :, None].expand(-1, -1, reach).flatten(1)
-    sh = shift[c0:c1].repeat_interleave(reach, dim=1)         # (C, M, 3)
-    alive_i = fld[RTYPE].index_select(0, islot.reshape(-1)
-                                      ).reshape(islot.shape) > 0.5
-    alive_j = jok & (fld[RTYPE].index_select(0, jslot.reshape(-1)
-                                             ).reshape(jslot.shape) > 0.5)
-    rsq = None
-    for a in range(3):
-        xi = fld[RX + a].index_select(0, islot.reshape(-1)
-                                      ).reshape(islot.shape)
-        xj = fld[RX + a].index_select(0, jslot.reshape(-1)
-                                      ).reshape(jslot.shape) + sh[..., a]
-        d = xi[:, :, None] - xj[:, None, :]
-        rsq = d * d if rsq is None else rsq + d * d
-    keep = (alive_i[:, :, None] & alive_j[:, None, :] & (rsq > 1e-12)
-            & (rsq < cutmax2)).nonzero()
-    c, i, m = keep[:, 0], keep[:, 1], keep[:, 2]
-    return islot[c, i], jslot[c, m], sh[c, m]
+    return _live_pairs(fld, islot, jslot, jok,
+                       shift[c0:c1].repeat_interleave(reach, dim=1), cutmax2)
 
 
 def plain_column_sweep(sweep: str, fld: torch.Tensor, tabs: DeviceTables,
@@ -201,40 +167,14 @@ def plain_column_sweep(sweep: str, fld: torch.Tensor, tabs: DeviceTables,
     candidates are the slots of the 27 (3D) / 9 (2D) neighbour cells, with
     their image shift; a pair needs both types alive and 1e-12 < rsq (the
     TPU kernel's mask), and pairs beyond the sweep's largest cutoff are
-    dropped first (``_column_pairs``). The physics of ``tile_physics``
-    runs on the surviving pair list; the rho sweep adds the self term.
-    Returns the (8, n_slots) output matrix with the sweep's O* rows filled
-    on alive slots, zero elsewhere."""
-    dev = fld.device
-    n, cap = cg.n_slots, cg.cap
-    ncells = cg.ncols * cg.ncz
-    out = torch.zeros(8, n, dtype=torch.float32, device=dev)
-    reach = live_reach(fld, cg)
-    cstep = max(1, _PLAIN_CHUNK // max(reach * reach * 3 * cg.nnbr, 1))
-    rows = _FIELD_ROWS[sweep]
-    sel = fld[list(rows)]
-    for c0 in range(0, ncells if reach else 0, cstep):
-        c1 = min(c0 + cstep, ncells)
-        pi, pj, sh = _column_pairs(fld, cg, c0, c1, tabs.cutmax2[sweep],
-                                   reach)
-        r0, r1 = c0 * cap, c1 * cap
-        h_rows = tile_physics.hoist_i(
-            {r: fld[r, r0:r1] for r in rows}, tabs.tab1, spec, sweep)
-        h = {key: v.index_select(0, pi - r0) for key, v in h_rows.items()}
-        fi = dict(zip(rows, sel.index_select(1, pi)))
-        fj = dict(zip(rows, sel.index_select(1, pj)))
-        dx = tuple(fi[RX + a] - (fj[RX + a] + sh[:, a]) for a in range(3))
-        rsq = dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2]
-        lk = tile_physics.Lookups(tabs.tab2, tabs.tab1, spec,
-                                  fi[RTYPE].long(), fj[RTYPE].long())
-        parts = tile_physics.tile_part_sums(fi, fj, h, dx, rsq, lk, spec,
-                                            sweep)
-        for row, p in zip(_OUT_ROWS[sweep], parts):
-            out[row].index_add_(0, pi, p)
-    if sweep == "rho":
-        # zero on empty slots: type 0's cut_rho entry is 0
-        out[ORHO] += tile_physics.rho_self(fld, tabs.tab2, spec)
-    return out
+    dropped first (``_column_pairs``); then ``plain_pair_sweep``, whose
+    rho sweep adds the self term. Returns the (8, n_slots) output matrix
+    with the sweep's O* rows filled on alive slots, zero elsewhere."""
+    reach = live_reach(fld, cg.cap)
+    return plain_pair_sweep(
+        sweep, fld, tabs, spec, cg.ncols * cg.ncz, cg.cap,
+        reach * reach * 3 * cg.nnbr,
+        lambda c0, c1, cut2: _column_pairs(fld, cg, c0, c1, cut2, reach))
 
 
 class ColumnSweepKernel:

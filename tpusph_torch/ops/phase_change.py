@@ -37,7 +37,7 @@ import math
 import numpy as np
 import torch
 
-from tpusph_torch.ops.strip_pair import _scatter_rows
+from tpusph_torch.ops.band_pair import _scatter_rows
 from tpusph_torch.params import PhysicsSpec
 from tpusph_torch.state import Box, ParticleState
 

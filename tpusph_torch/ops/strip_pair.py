@@ -36,12 +36,13 @@ from tpusph_torch.grid import GridData, needs_rebuild
 from tpusph_torch.ops import cuda_build
 from tpusph_torch.ops import tile_physics
 from tpusph_torch.ops.band_pair import (
-    BandBackend, _neighbor_offsets, _plane_shift, dead_lane_fill,
-    pack_fields,
+    _FIELD_ROWS, _OUT_ROWS, BandBackend, _neighbor_offsets,
+    _plane_neighbor_perm, _plane_shift, _scatter_rows, check_inputs,
+    dead_lane_fill, pack_fields, spec_flags,
 )
 from tpusph_torch.ops.rows import (
-    F_ROWS, OCGX, OCGY, ODE, ODRHO, OFX, OFY, OFZ, ORHO, RCV, RM, RMIX,
-    RRHO, RSLOT, RTYPE, RX, RY, RZ,
+    F_ROWS, OCGX, OCGY, ODE, OFX, OFY, ORHO, RCV, RM, RMIX, RRHO, RSLOT,
+    RTYPE, RX, RY, RZ,
 )
 from tpusph_torch.params import DeviceTables, PhysicsSpec
 from tpusph_torch.state import Box, ParticleState
@@ -470,28 +471,6 @@ def choose_strip_geometry(box: Box, cutoff: float, dim: int, skin: float,
 # rebuild: one key sort into dense z-ordered columns + seam ghosts
 # --------------------------------------------------------------------------
 
-def _plane_neighbor_perm(geom: StripGeometry, ox: int, oy: int):
-    """Host-side neighbour-column permutation for one plane offset:
-    (perm (ncols,) int, valid (ncols,) bool)."""
-    cidx = np.arange(geom.ncols)
-    if geom.dim == 3:
-        cx, cy = cidx // geom.ncy, cidx % geom.ncy
-        nx, ny = cx + ox, cy + oy
-        if geom.periodic[0]:
-            nx = nx % geom.ncx
-        if geom.periodic[1]:
-            ny = ny % geom.ncy
-        valid = (nx >= 0) & (nx < geom.ncx) & (ny >= 0) & (ny < geom.ncy)
-        perm = np.where(valid, nx * geom.ncy + ny, 0)
-    else:
-        nx = cidx + ox
-        if geom.periodic[0]:
-            nx = nx % geom.ncx
-        valid = (nx >= 0) & (nx < geom.ncx)
-        perm = np.where(valid, nx, 0)
-    return perm, valid
-
-
 def _fdiv(a: torch.Tensor, s: float) -> torch.Tensor:
     """a / f32(s) as a true division. torch's CUDA path divides by a
     Python scalar as a multiply by its reciprocal, which can round
@@ -519,15 +498,6 @@ def column_id(x: torch.Tensor, geom: StripGeometry):
     lz = geom.lengths[ca]
     z = torch.clamp(x[:, ca] - origin[ca], 0.0, lz * (1.0 - 1e-7))
     return col, z
-
-
-def _scatter_rows(dst: torch.Tensor, dest: torch.Tensor, rows: torch.Tensor,
-                  n: int) -> torch.Tensor:
-    """dst[dest] = rows, dropping entries whose dest is n (no host sync:
-    the dropped entries land on one scratch row that is cut off)."""
-    ext = torch.cat([dst, dst[:1]])
-    ext[dest] = rows
-    return ext[:n]
 
 
 def build_strips(state: ParticleState, geom: StripGeometry, box: Box,
@@ -764,11 +734,6 @@ def strip_windows(geom: StripGeometry, device) -> StripWindows:
 # bounds its memory at any pool size
 _PLAIN_CHUNK = 1 << 24
 _GROUP = 16  # i rows per bounding box of the plain sweep's prefilter
-_FIELD_ROWS = {"rho": (RX, RY, RZ, RM, RTYPE, RRHO),
-               "cgrad": (RX, RY, RZ, RM, RTYPE, RRHO),
-               "force": tuple(range(F_ROWS))}
-_OUT_ROWS = {"rho": (ORHO,), "cgrad": (OCGX, OCGY, ODE),
-             "force": (OFX, OFY, OFZ, ODRHO, ODE, ORHO)}
 
 
 def _take(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -891,33 +856,6 @@ def plain_sweep(sweep: str, fld: torch.Tensor, tabs: DeviceTables,
         for row in (OCGX, OCGY, ODE):
             out[row] = torch.where(mixed, out[row], 0.0)
     return out
-
-
-_FLAG_BITS = ("rhosum_nd", "tait", "morris", "ideal_gas", "lj",
-              "heatconduction", "heat_phasechange", "surface_tension",
-              "continuity", "virial")
-
-
-def spec_flags(spec: PhysicsSpec) -> int:
-    return sum(1 << k for k, name in enumerate(_FLAG_BITS)
-               if getattr(spec, name))
-
-
-def check_inputs(what: str, fld: torch.Tensor, checks) -> None:
-    """Raise ValueError unless every (name, tensor, shape, dtype) of
-    ``checks`` has that shape and dtype, lies on fld's device and is
-    contiguous."""
-    for name, t, shape, dtype in checks:
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"{what}: {name} is {tuple(t.shape)} {t.dtype}, "
-                             f"expected {shape} {dtype}")
-        if t.device != fld.device:
-            raise ValueError(f"{what}: {name} on {t.device}, fld on "
-                             f"{fld.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be contiguous")
-    if fld.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{what}: no kernel for {fld.device}")
 
 
 def _window_checks(fld, win: StripWindows, delta, geom: StripGeometry):
@@ -1123,7 +1061,10 @@ KERNELS = {**SWEEPS, "vapor": vapor_sweep}
 
 class StripBackend(BandBackend):
     """Strip backend: the rebuild, the per-step seam refresh, and the
-    three sweeps over the strip layout. Single device."""
+    three sweeps over the strip layout; the pool resize and the fused force
+    stage are the band backend's. Single device."""
+
+    name = "strip"
 
     def __init__(self, geom: StripGeometry, ntypes: int,
                  rebuild_every: int = 0, device="cpu"):

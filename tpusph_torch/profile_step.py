@@ -2,6 +2,7 @@
 
     python -m tpusph_torch.profile_step --mode boiling [--backend pallas]
                                         [--particles N]
+    python -m tpusph_torch.profile_step --mode dynamic --backend band
 
 Builds the bench (``tpusph_torch.bench``), warms it up as ``run_bench``
 does, then runs one window of ``--steps`` steps under ``torch.profiler``
@@ -10,7 +11,8 @@ each hand-written kernel (launches, total and mean ms), the device time of
 all other device work, the device idle share (wall time not covered by
 device work), and the window's rebuilds and phase-change insertions.
 ``--backend`` is the simulation's ``backend_name`` (``auto``: the strip;
-``pallas``: the column kernel on the cell grid). Needs a CUDA device.
+``band``: the band backend, for a run without phase change; ``pallas``:
+the column kernel on the cell grid). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -29,9 +31,9 @@ from tpusph_torch.bench import build_bench_sim, card_info, run_bench
 # a sweep kernel's template argument is the Sweep enum (rho 0, cgrad 1,
 # force 2)
 SWEEPS = ("rho", "cgrad", "force")
-KERNEL_NAMES = tuple(f"{b}_{s}" for b in ("strip", "column") for s in SWEEPS
-                     ) + ("strip_vapor",)
-_SWEEP = re.compile(r"(strip|column)_sweep_kernel<(?:\(int\))?(\d)>")
+KERNEL_NAMES = tuple(f"{b}_{s}" for b in ("strip", "column", "band")
+                     for s in SWEEPS) + ("strip_vapor",)
+_SWEEP = re.compile(r"(strip|column|band)_sweep_kernel<(?:\(int\))?(\d)>")
 
 
 def _kernel_of(name: str) -> str | None:
@@ -79,6 +81,7 @@ def profile_window(mode: str, n_particles: int, steps: int,
                 insertions=sim.natoms - n0,
                 backend=warm["backend"], strip_w=warm["strip_w"],
                 cell_cap=warm["cell_cap"],
+                band_geometry=warm["band_geometry"],
                 warmup_psps=warm["value"], device_name=name,
                 power_limit=limit)
 
@@ -89,7 +92,8 @@ def main() -> None:
                     choices=("uniform", "dynamic", "boiling"))
     ap.add_argument("--particles", type=int, default=1_000_000)
     ap.add_argument("--steps", type=int, default=50)
-    ap.add_argument("--backend", default="auto", choices=("auto", "pallas"))
+    ap.add_argument("--backend", default="auto",
+                    choices=("auto", "band", "pallas"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
