@@ -6,9 +6,9 @@
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. device  — a CUDA device must exist; prints nvidia-smi's name and
                power limit.
-  2. build   — compiles csrc/strip_sweeps.cu, csrc/column_sweeps.cu and
-               csrc/band_sweeps.cu with nvcc (sm_90a, one nvcc each, in
-               parallel) and loads them.
+  2. build   — compiles csrc/strip_sweeps.cu, csrc/column_sweeps.cu,
+               csrc/band_sweeps.cu and csrc/compact_force.cu with nvcc
+               (sm_90a, one nvcc each, in parallel) and loads them.
   3. kernels — on the bench `dynamic` state after the initial strip build,
                runs each of the rho / colour-gradient / force sweeps through
                its CUDA kernel and its plain PyTorch version, checks the
@@ -21,52 +21,68 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                conserved and the momentum drift bounded.
   5. kernels — phase 3 again on the layout the next step after the main
                path would sweep (the re-chosen window W).
-  6. kernels — on the bench `boiling` state after the initial strip build
+  6. compact — on that layout, the compacted force sweep's path
+               (tpusph_torch.proto_mxu_compact: the force stage's rho and
+               colour-gradient sweeps and patches, P from the alive rows,
+               the strip force kernel and the compacted kernel on the same
+               inputs), with the launch counts reset just before it and read
+               just after; the compacted kernel against the strip force
+               kernel (rows 0-4 within 2e-4 of the row's largest magnitude on
+               the alive rows, no overflow) and against its plain version
+               (rows 0-4 within 2e-4 on the owned particles, the overflow
+               row equal and rows 5-6 zero on every slot).
+  7. uniform — the 1M `uniform` bench (the reference prototype's default),
+               5 steps on the strip, then phase 6 on its layout.
+  8. uniform main path — resets the counts, runs the `uniform` bench on
+               the same simulation, and checks phase 4's ledgers (the
+               momentum drift against the larger of sum m|v| before and
+               after: the run starts at rest).
+  9. kernels — on the bench `boiling` state after the initial strip build
                (column headroom 1.35, the T_sat-pinned heat branch), the
                three sweeps as in phase 3 and the vapor sweep's kernel
                against its plain version: count, both slots and both rsq
                equal on every alive row.
-  7. boiling — resets the counts, runs the `boiling` bench (fix
+ 10. boiling — resets the counts, runs the `boiling` bench (fix
                phase_change), and checks all four kernels were launched,
                particles were inserted and the vapour count grew by as
                many, the owned mass and momentum ledgers, the liquid's
                mass debit, no overflow and finite fields.
-  8. kernels — phase 6 again on the layout after the boiling path
+ 11. kernels — phase 9 again on the layout after the boiling path
                (re-chosen W, inserted particles rebuilt into columns).
-  9. slices  — the 16^3 `dynamic` bench slice for 20 steps, and a 12^3
+ 12. slices  — the 16^3 `dynamic` bench slice for 20 steps, and a 12^3
                vapour bubble with fix phase_change (prob 1) for 20 steps,
                each on the GPU (kernels) and on the CPU (plain versions):
                the results must agree.
- 10. column  — on the bench `boiling` state under backend="pallas" (the
+ 13. column  — on the bench `boiling` state under backend="pallas" (the
                column kernel on the cell grid) after the initial sort, the
                three column sweeps' kernels against their plain versions,
                as in phase 3.
- 11. column boiling — resets the counts, runs the `boiling` bench with
+ 14. column boiling — resets the counts, runs the `boiling` bench with
                backend="pallas", and checks the three column kernels were
-               launched and no strip kernel was, plus phase 7's ledgers.
- 12. column  — phase 10 again on the layout after the column path, and the
+               launched and no strip kernel was, plus phase 10's ledgers.
+ 15. column  — phase 13 again on the layout after the column path, and the
                cell-grid vapor query's time per firing.
- 13. column slice — the 12^3 bubble on the column kernel, GPU against CPU.
- 14. band    — on the bench `dynamic` state under backend="band" (the
+ 16. column slice — the 12^3 bubble on the column kernel, GPU against CPU.
+ 17. band    — on the bench `dynamic` state under backend="band" (the
                slot-resident sub-cell layout) after the initial build, the
                three band sweeps' kernels against their plain versions, as
                in phase 3.
- 15. band dynamic — resets the counts, runs the `dynamic` bench with
+ 18. band dynamic — resets the counts, runs the `dynamic` bench with
                backend="band", and checks the three band kernels were
                launched and no strip or column kernel was, the timed
                windows ran on BandBackend, plus phase 4's ledgers.
- 16. band    — phase 14 again on the layout after the band path.
- 17. band slice — the 16^3 `dynamic` bench slice on band, GPU against CPU.
- 18. ladder  — a phase-change run whose periodic column axis is too short
+ 19. band    — phase 17 again on the layout after the band path.
+ 20. band slice — the 16^3 `dynamic` bench slice on band, GPU against CPU.
+ 21. ladder  — a phase-change run whose periodic column axis is too short
                to strip takes the column kernel under "auto"; escalated
                floors abandon the strip for the column kernel (phase
                change on) and for band (phase change off), and three calm
                rebuilds later the strip comes back, each with the CPU
                run's trajectory.
-Prints the four bench JSON lines, one JSON line of the kernels (launches
-on the boiling paths and the band path; times and bounds from phases 8, 12
-and 16, the largest error of all comparisons), and as the last line
-{"ok": true, "device": {...}}.
+Prints the five bench JSON lines, one JSON line of the kernels (launches
+on the boiling paths, the band path and the compacted sweep's two paths;
+times and bounds from phases 11, 15, 19 and 6, the largest error of all
+comparisons), and as the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -84,7 +100,8 @@ import time
 KERNEL_RTOL = {"rho": 2e-5, "cgrad": 2e-4, "force": 2e-4, "vapor": 0.0}
 SOURCES = {"strip": "tpusph_torch/csrc/strip_sweeps.cu",
            "column": "tpusph_torch/csrc/column_sweeps.cu",
-           "band": "tpusph_torch/csrc/band_sweeps.cu"}
+           "band": "tpusph_torch/csrc/band_sweeps.cu",
+           "compact": "tpusph_torch/csrc/compact_force.cu"}
 REPLACES = {"strip_rho": "tpusph/ops/strip_pair.py:1106",
             "strip_cgrad": "tpusph/ops/strip_pair.py:1106",
             "strip_force": "tpusph/ops/strip_pair.py:1106",
@@ -94,7 +111,8 @@ REPLACES = {"strip_rho": "tpusph/ops/strip_pair.py:1106",
             "column_force": "tpusph/ops/pallas_pair.py:233",
             "band_rho": "tpusph/ops/band_pair.py:484",
             "band_cgrad": "tpusph/ops/band_pair.py:484",
-            "band_force": "tpusph/ops/band_pair.py:484"}
+            "band_force": "tpusph/ops/band_pair.py:484",
+            "compact_force": "tpusph/ops/mxu_compact.py:123"}
 KERNELS = ("rho", "cgrad", "force", "vapor")
 STRIP = tuple(f"strip_{k}" for k in KERNELS)
 COLUMN = ("column_rho", "column_cgrad", "column_force")
@@ -139,8 +157,7 @@ def live_pairs(fld, win, delta, geom, cut2, own, keep=None):
     not the nnbr*W candidates, nor the pairs of seam-ghost rows, whose
     sums are discarded. ``keep(pi, pj)`` filters them further."""
     from tpusph_torch.ops import strip_pair
-    cstep = max(1, strip_pair._PLAIN_CHUNK * strip_pair._GROUP
-                // (geom.col_cap * geom.nnbr * geom.w))
+    cstep = strip_pair._column_step(geom)
     total = 0
     for c0 in range(0, geom.ncols, cstep):
         pi, pj, *_ = strip_pair._window_pairs(
@@ -329,6 +346,100 @@ def vapor_to_plain(sim, backend, state, aux, own, reps):
         PAIR_OPS["vapor"] * npairs, reps))
 
 
+def hold_compact(sim, label, reps=10):
+    """The compacted force sweep on the strip layout the simulation's next
+    step would sweep. Its path, ``tpusph_torch.proto_mxu_compact``'s
+    ``compact_inputs`` and ``measure_inputs``, runs with the launch counts
+    reset just before it and read just after (the force stage's sweeps,
+    the strip force kernel and the compacted kernel must have launched,
+    no other); then the compacted kernel against the strip force kernel on
+    the same inputs and against its plain version. Returns the report."""
+    import torch
+    from tpusph_torch import proto_mxu_compact as proto
+    from tpusph_torch.ops import mxu_compact
+    from tpusph_torch.ops.rows import ODE, ODRHO, OFX, OFY, OFZ, RMIX
+
+    spec = sim.spec
+    names = (("strip_rho",) if spec.rhosum_every > 0 else ()) \
+        + (("strip_cgrad",) if spec.surface_tension else ()) \
+        + ("strip_force", "compact_force")
+    reset_counts()
+    inp = proto.compact_inputs(sim)
+    rep = proto.measure_inputs(inp, reps)
+    launches = read_counts(names)
+    geom = inp.backend.geom
+    print(f"  {label}: geometry W {geom.w}, nnbr {geom.nnbr}, ts {geom.ts}, "
+          f"{geom.n_slots} slots, {rep['alive']} alive rows; P {inp.P} "
+          f"(headroom {inp.headroom}); candidate rows per i-row nnbr*W "
+          f"{geom.nnbr * geom.w} -> P ({rep['lane_ratio']:.2f}x)")
+    print(f"  {label}: strip force kernel {rep['strip_force_ms']:.3f} ms, "
+          f"compacted kernel {rep['compact_force_ms']:.3f} ms on the same "
+          f"inputs ({rep['speedup']:.2f}x)")
+    for name, err in rep["row_rel_err"].items():
+        print(f"  {label} compact vs strip force {name}: max|d|/max|strip| "
+              f"{err:.3e} (tolerance {KERNEL_RTOL['force']:.0e})")
+        assert err <= KERNEL_RTOL["force"], (label, name, err)
+    print(f"  {label}: overflow rows {rep['overflow_rows']} (must be 0)")
+    assert rep["overflow_rows"] == 0, rep["overflow_rows"]
+
+    def run_kernel():
+        return proto.run_compact(inp)
+
+    def run_plain():
+        return mxu_compact.plain_compact_force(
+            inp.fld, inp.tabs, inp.backend.win, inp.aux.delta, geom,
+            inp.spec, inp.P, inp.cut)
+
+    out_k = run_kernel()
+    out_p = run_plain()
+    # rows 0-4 on the owned particles: the seam-ghost rows' sums are
+    # discarded (refresh_seam re-copies the ghosts every step), and on the
+    # `uniform` layout a ghost at its band's edge sums a z force up to ~10
+    # while its x and y sums cancel to ~1e-5, so float32 sums in any two
+    # orders differ there by more than 2e-4 of the x row's largest value
+    # (plain version against float64 sums at 32^3: 4.5e-6 on ghost rows,
+    # 1.8e-7 on owned rows); against the strip force kernel above, and in
+    # the overflow row below, ghost rows are held too
+    own = inp.state.alive & inp.state.owned
+    errs = compare_rows(f"{label} compact", "force", out_k, out_p, own,
+                        (OFX, OFY, OFZ, ODRHO, ODE))
+    assert float(out_k[5:7].abs().max()) == 0.0, "rows 5-6 not zero"
+    neq = int((out_k[mxu_compact.OCNT] != out_p[mxu_compact.OCNT]).sum())
+    print(f"  {label} compact overflow row: {neq} slots differ (tolerance: "
+          "none)")
+    assert neq == 0, neq
+    # the bound is the strip force sweep's: the same function over the
+    # same live pairs
+    fld, cut2 = inp.fld, inp.tabs.cutmax2["force"]
+    npairs = live_pairs(fld, inp.backend.win, inp.aux.delta, geom, cut2, own)
+    st_pairs = live_pairs(fld, inp.backend.win, inp.aux.delta, geom, cut2,
+                          own, keep=lambda pi, pj: fld[RMIX][pi] > 0.25)
+    ops = PAIR_OPS["force"] * npairs + PAIR_OPS["force_st"] * st_pairs
+    print(f"  {label}: live pairs {npairs}, in tiles flagged > 0.25: "
+          f"{st_pairs}")
+    times = timed(f"{label} compact", run_kernel, run_plain, int(own.sum()),
+                  ops, reps, kind="force")
+    torch.cuda.synchronize()
+    return dict(max_abs_err=max(errs), launches=launches["compact_force"],
+                strip_force_ms=rep["strip_force_ms"],
+                ms_beside_strip=rep["compact_force_ms"], P=inp.P, W=geom.w,
+                lane_ratio=rep["lane_ratio"],
+                overflow_rows=rep["overflow_rows"], **times)
+
+
+def uniform_compact(n):
+    """The `uniform` bench after 5 steps on the strip (the reference
+    prototype's run), then ``hold_compact`` on its layout. Returns (sim,
+    report)."""
+    from tpusph_torch.bench import build_bench_sim
+
+    sim = build_bench_sim(n, mode="uniform", device="cuda")
+    sim.run(5)
+    print(f"  backend {type(sim._runner.backend).__name__}, strip W "
+          f"{sim._strip_geom.w}")
+    return sim, hold_compact(sim, "uniform")
+
+
 def owned_totals(sim):
     """(total owned mass, momentum vector, sum of m|v|, liquid mass,
     vapour count) in float64."""
@@ -373,7 +484,8 @@ def phase_main(sim, mode, steps, windows, backend="auto"):
     import torch
     from tpusph_torch.bench import run_bench
 
-    sim._build_state()
+    if sim.aux is None:
+        sim._build_state()
     mass0, p0, mv0, liq0, nvap0 = owned_totals(sim)
     n0 = sim.natoms
     if backend == "pallas":
@@ -397,11 +509,14 @@ def phase_main(sim, mode, steps, windows, backend="auto"):
     for name in ("x", "v", "vest", "f", "rho", "drho", "e", "de"):
         assert torch.isfinite(getattr(st, name)).all(), f"{name} not finite"
     assert bench["particles"] == n0
-    mass1, p1, _, liq1, nvap1 = owned_totals(sim)
+    mass1, p1, mv1, liq1, nvap1 = owned_totals(sim)
     dmass = abs(mass1 - mass0) / mass0
-    dp = float(np.abs(p1 - p0).max()) / mv0
+    # `uniform` starts at rest: its scale is the larger of sum m|v| before
+    # and after
+    scale = max(mv0, mv1) if mode == "uniform" else mv0
+    dp = float(np.abs(p1 - p0).max()) / scale
     print(f"  owned mass drift {dmass:.3e} (bound 1e-6); momentum drift "
-          f"{dp:.3e} of sum m|v0| (bound 1e-4)")
+          f"{dp:.3e} of sum m|v| {scale:.6e} (bound 1e-4)")
     assert dmass <= 1e-6, dmass
     assert dp <= 1e-4, dp
     if mode == "boiling":
@@ -743,7 +858,7 @@ def main() -> int:
     from tpusph_torch.bench import build_bench_sim, card_info
     from tpusph_torch.ops import cuda_build
 
-    nphases = 18
+    nphases = 21
     count = iter(range(1, nphases + 1))
 
     def phase(title, fn, *a):
@@ -771,6 +886,16 @@ def main() -> int:
                        "dynamic", args.steps, args.windows)
     reports.append(phase("dynamic: sweeps vs plain on the layout after the "
                          "main path", hold_to_plain, sim, KERNELS[:3], True))
+    compact = {"dynamic": phase(
+        "dynamic: the compacted force sweep's path, vs the strip force and "
+        "vs plain on the layout after the main path", hold_compact, sim,
+        "dynamic")}
+    del sim
+    sim, compact["uniform"] = phase(
+        f"uniform: 5 steps at {n} particles, then the compacted force "
+        "sweep's path, vs the strip force and vs plain", uniform_compact, n)
+    _, uniform = phase("uniform main path: run_bench", phase_main, sim,
+                       "uniform", args.steps, args.windows)
     del sim
     sim = build_bench_sim(n, mode="boiling", device="cuda")
     reports.append(phase(f"boiling: all four kernels vs plain on the initial "
@@ -835,7 +960,18 @@ def main() -> int:
                 replaces=REPLACES[key], launches=counts[key],
                 library_ms=None, **{**after[s], "max_abs_err": max(
                     r[s]["max_abs_err"] for r in reps)}))
+    # on no path of Simulation: its path is the prototype's (phases 6-7);
+    # top-level numbers from the `dynamic` layout (W 384), the case the
+    # design is for, and both layouts beside them
+    kernels.append(dict(
+        name="compact_force_sweep", route="cuda", source=SOURCES["compact"],
+        replaces=REPLACES["compact_force"], library_ms=None,
+        **{**compact["dynamic"],
+           "launches": sum(r["launches"] for r in compact.values()),
+           "max_abs_err": max(r["max_abs_err"] for r in compact.values())},
+        layouts=compact))
     print(json.dumps(dynamic))
+    print(json.dumps(uniform))
     print(json.dumps(boiling))
     print(json.dumps(column))
     print(json.dumps(band))

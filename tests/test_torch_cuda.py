@@ -1,6 +1,7 @@
 """The CUDA strip sweeps (tpusph_torch/csrc/strip_sweeps.cu), column
-sweeps (tpusph_torch/csrc/column_sweeps.cu) and band sweeps
-(tpusph_torch/csrc/band_sweeps.cu) against their plain PyTorch versions,
+sweeps (tpusph_torch/csrc/column_sweeps.cu), band sweeps
+(tpusph_torch/csrc/band_sweeps.cu) and the compacted force sweep
+(tpusph_torch/csrc/compact_force.cu) against their plain PyTorch versions,
 on the card, for every physics branch the kernels carry: Tait /
 Morris / ideal gas / LJ, continuity, heat conduction with and without
 T_sat pinning, CSF, the virial, rhosum in both forms, scalar-folded tables
@@ -8,7 +9,10 @@ with a shared cutoff, all four smoothing kernels, 2D and 3D, periodic and
 not. The strip vapor sweep (the fix phase_change interface query) is held
 to its plain version exactly: count, both slots and both rsq, on exact
 lattices (rsq ties) and jittered ones, with seam-ghost rows where the
-column axis is periodic. A CUDA tensor never takes a plain version: every
+column axis is periodic. The compacted force sweep keeps exactly the plain
+version's survivors (its overflow count equal on every slot, also with P
+below the candidate union) and matches the strip force kernel where
+nothing overflows. A CUDA tensor never takes a plain version: every
 wrapper call moves its launch counter.
 
 Needs an NVIDIA GPU and nvcc (marker ``cuda``); elsewhere every test skips.
@@ -27,7 +31,7 @@ import pytest
 import torch
 
 from tpusph_torch import grid, kernels
-from tpusph_torch.ops import band_pair, pallas_pair, strip_pair
+from tpusph_torch.ops import band_pair, mxu_compact, pallas_pair, strip_pair
 from tpusph_torch.ops.band_pair import pack_fields
 from tpusph_torch.ops.rows import (
     OCGX, OCGY, ODE, ODRHO, OFX, OFY, OFZ, ORHO, RCGX, RCGZ, RM, RRHO, RSLOT,
@@ -350,3 +354,106 @@ def test_band_force_stage_on_card_matches_cpu(device):
         b = getattr(outs["cuda"], field).cpu()
         err = float((a - b).abs().max())
         assert err <= rtol * float(a.abs().max()), (field, err)
+
+
+def compact_inputs(name, dim, periodic, seed, device):
+    """The strip layout of the lattice and the force sweep's field matrix,
+    packed as the force stage packs it (rho and cg patched), with P
+    measured over the alive rows: (backend, state, aux, fld, tabs, spec,
+    P, cut)."""
+    st, box, tables = lattice(dim, 12 if dim == 3 else 40, periodic, seed,
+                              device, uniform=name == "bench_folded")
+    x = st.x[st.alive].cpu().numpy()
+    geom = strip_pair.choose_strip_geometry(box, tables.max_cut(), dim, 0.2,
+                                            x=x)
+    backend = strip_pair.StripBackend(geom, ntypes=2, device=device)
+    st, aux = backend.init_aux(st, box)
+    assert int(aux.overflow.sum()) == 0
+    spec = PhysicsSpec(dim=dim, **SPECS[name])
+    tabs = tables.stacked(device)
+    fld, _ = backend.force_fields(st, tabs, spec, aux, 0)
+    cut = tables.max_cut()
+    P = mxu_compact.measure_union_cap(st.x[st.alive].cpu().numpy(), geom,
+                                      box, cut)
+    return backend, st, aux, fld, tabs, spec, P, cut
+
+
+def run_compact(backend, aux, fld, tabs, spec, P, cut):
+    """The compacted kernel (one launch counted) and its plain version."""
+    kern = mxu_compact.compact_force
+    n0 = kern.launches
+    out_k = kern(fld, tabs, backend.win, aux.delta, backend.geom, spec, P,
+                 cut)
+    torch.cuda.synchronize()
+    assert kern.launches == n0 + 1
+    out_p = mxu_compact.plain_compact_force(fld, tabs, backend.win,
+                                            aux.delta, backend.geom, spec,
+                                            P, cut)
+    return out_k, out_p
+
+
+COMPACT_ROWS = (OFX, OFY, OFZ, ODRHO, ODE)
+
+
+def check_compact(out_k, out_p, alive):
+    """Rows OFX..ODE within the force tolerance of the plain version's row
+    maximum on the alive slots, rows 5-6 zero everywhere, OCNT equal on
+    every slot."""
+    for r in COMPACT_ROWS:
+        a, b = out_k[r][alive], out_p[r][alive]
+        assert torch.isfinite(a).all(), r
+        err = float((a - b).abs().max())
+        assert err <= RTOL["force"] * float(b.abs().max()), (r, err)
+    assert float(out_k[5:7].abs().max()) == 0.0
+    assert torch.equal(out_k[mxu_compact.OCNT], out_p[mxu_compact.OCNT])
+
+
+@pytest.mark.parametrize("name,dim,periodic", [
+    ("bench", 3, True), ("bench", 3, False), ("morris_virial", 3, True),
+    ("idealgas_cubic", 3, True), ("lj_quintic", 3, False),
+    ("heatpc_wendland_st", 3, True), ("bench", 2, True),
+    ("heatpc_wendland_st", 2, False),
+])
+def test_compact_kernel_matches_plain_and_strip(device, name, dim, periodic):
+    """Every physics branch: the compacted kernel against its plain version
+    and, with no overflow at the measured P, against the strip force
+    kernel on the same field matrix."""
+    backend, st, aux, fld, tabs, spec, P, cut = compact_inputs(
+        name, dim, periodic, dim + 17, device)
+    out_k, out_p = run_compact(backend, aux, fld, tabs, spec, P, cut)
+    alive = st.alive
+    check_compact(out_k, out_p, alive)
+    assert float(out_k[mxu_compact.OCNT].max()) == 0.0
+    strip = strip_pair.SWEEPS["force"](fld, tabs, backend.win, aux.delta,
+                                       backend.geom, spec)
+    for r in COMPACT_ROWS:
+        err = float((out_k[r][alive] - strip[r][alive]).abs().max())
+        assert err <= RTOL["force"] * float(strip[r][alive].abs().max()), \
+            (r, err)
+
+
+def test_compact_kernel_overflow_matches_plain(device):
+    """At P = 128, below the candidate union: the kernel keeps the same
+    first P survivors per tile as the plain version (OCNT equal on every
+    slot, the sums within tolerance)."""
+    backend, st, aux, fld, tabs, spec, _, cut = compact_inputs(
+        "bench", 3, True, 21, device)
+    out_k, out_p = run_compact(backend, aux, fld, tabs, spec, 128, cut)
+    assert float(out_p[mxu_compact.OCNT].max()) > 0.0
+    check_compact(out_k, out_p, st.alive)
+
+
+def test_compact_kernel_always_launches(device):
+    """A CUDA tensor launches the kernel whatever its inputs: with P = 0
+    every survivor overflows (zero sums, OCNT the survivor count), and a
+    pool with no alive row writes zeros."""
+    backend, st, aux, fld, tabs, spec, _, cut = compact_inputs(
+        "morris_virial", 3, True, 23, device)
+    out_k, out_p = run_compact(backend, aux, fld, tabs, spec, 0, cut)
+    check_compact(out_k, out_p, st.alive)
+    assert float(out_k[:7].abs().max()) == 0.0
+    assert float(out_k[mxu_compact.OCNT].max()) > 0.0
+    dead = fld.clone()
+    dead[RTYPE] = 0.0
+    out_k, out_p = run_compact(backend, aux, dead, tabs, spec, 128, cut)
+    assert float(out_k.abs().max()) == 0.0

@@ -1,12 +1,16 @@
 """tpusph_torch — the PyTorch/CUDA port of tpusph for NVIDIA Hopper.
 
 The JAX package ``tpusph`` stays the reference; this package never imports
-it (nor jax). The strip backend's three pair sweeps and the phase-change
-vapor query (``csrc/strip_sweeps.cu``) and the column kernel's three
-sweeps over the cell grid (``csrc/column_sweeps.cu``) are hand-written
-CUDA kernels, built with nvcc at first use; on CPU tensors every sweep
-runs its plain PyTorch version. Entry points run on the card unless the
-caller passes ``device="cpu"``.
+it (nor jax). Hand-written CUDA kernels, built with nvcc at first use: the
+strip backend's three pair sweeps and the phase-change vapor query
+(``csrc/strip_sweeps.cu``), the column kernel's three sweeps over the cell
+grid (``csrc/column_sweeps.cu``), the band backend's three sweeps over the
+slot-resident sub-cells (``csrc/band_sweeps.cu``), and the compacted force
+sweep over the strip windows (``csrc/compact_force.cu``), which no path of
+``Simulation`` runs: ``python -m tpusph_torch.proto_mxu_compact`` measures
+it against the strip force sweep. On CPU tensors every sweep runs its
+plain PyTorch version. Entry points run on the card unless the caller
+passes ``device="cpu"``.
 """
 
 from tpusph_torch.api import Simulation

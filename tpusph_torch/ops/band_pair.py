@@ -708,10 +708,11 @@ class BandBackend:
         """One sweep's (8, n_slots) output matrix."""
         return KERNELS[sweep](fld, tabs, self.geom, spec)
 
-    def force_stage(self, state: ParticleState, tabs, spec: PhysicsSpec,
-                    aux, istep: int) -> ParticleState:
-        """rho sweep -> rho patch -> cgrad sweep -> cg patch -> force sweep
-        -> gravity. ``tabs`` is ``PairTables.stacked``'s device tables."""
+    def force_fields(self, state: ParticleState, tabs, spec: PhysicsSpec,
+                     aux, istep: int):
+        """The force sweep's inputs: rho sweep -> rho patch -> cgrad sweep
+        -> cg patch. Returns (fld, rho): the field matrix the force sweep
+        reads and the density the step keeps."""
         alive = state.alive
         fld = pack_fields(state, aux.mix if spec.surface_tension else None)
         rho = state.rho
@@ -727,6 +728,14 @@ class BandBackend:
             out = self._sweep("cgrad", fld, tabs, spec, aux)
             cg = torch.stack([out[OCGX], out[OCGY], out[ODE]])
             fld[RCGX:RCGZ + 1] = torch.where(alive, cg, 0.0)
+        return fld, rho
+
+    def force_stage(self, state: ParticleState, tabs, spec: PhysicsSpec,
+                    aux, istep: int) -> ParticleState:
+        """``force_fields`` -> force sweep -> gravity. ``tabs`` is
+        ``PairTables.stacked``'s device tables."""
+        alive = state.alive
+        fld, rho = self.force_fields(state, tabs, spec, aux, istep)
         out = self._sweep("force", fld, tabs, spec, aux)
         upd = dict(
             rho=rho,

@@ -1,9 +1,10 @@
 """Build and bind the hand-written CUDA sweeps: the strip sweeps (rho,
 colour gradient, force and the phase-change vapor query,
 ``csrc/strip_sweeps.cu``), the column sweeps (rho, colour gradient,
-force, ``csrc/column_sweeps.cu``) and the band sweeps (rho, colour
-gradient, force, ``csrc/band_sweeps.cu``), which share their pair physics
-through ``csrc/sph_pair.cuh``.
+force, ``csrc/column_sweeps.cu``), the band sweeps (rho, colour
+gradient, force, ``csrc/band_sweeps.cu``) and the compacted force sweep
+(``csrc/compact_force.cu``), which share their pair physics through
+``csrc/sph_pair.cuh``.
 
 Each source has a plain C interface: it is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library under ``tpusph_torch/_build/`` at first
@@ -29,7 +30,8 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = {"strip": _PKG / "csrc" / "strip_sweeps.cu",
            "column": _PKG / "csrc" / "column_sweeps.cu",
-           "band": _PKG / "csrc" / "band_sweeps.cu"}
+           "band": _PKG / "csrc" / "band_sweeps.cu",
+           "compact": _PKG / "csrc" / "compact_force.cu"}
 HEADERS = (_PKG / "csrc" / "sph_pair.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -44,6 +46,7 @@ _COLUMN_INT_ARGS = ("n_slots", "ncx", "ncy", "ncz", "cap", "dim", "per_x",
 _COLUMN_FLOAT_ARGS = ("lx", "ly", "lcol", "cutmax2")
 _BAND_INT_ARGS = ("n_slots", "ncx", "ncy", "nsub_pad", "G", "c", "k", "dim",
                   "per_x", "per_y", "per_col", "kernel", "flags", "T1")
+_COMPACT_INT_ARGS = _INT_ARGS + ("P",)
 
 
 class _Lib:
@@ -78,6 +81,11 @@ def _bind(name: str, handle: ctypes.CDLL) -> None:
             fn.restype = i32
         fn = handle.strip_vapor_launch
         fn.argtypes = [ptr] * 5 + [i32] * len(_VAPOR_INT_ARGS) + [f32, ptr]
+        fn.restype = i32
+    elif name == "compact":
+        fn = handle.compact_force_launch
+        fn.argtypes = ([ptr] * 7 + [i32] * len(_COMPACT_INT_ARGS)
+                       + [f32, f32, ptr])
         fn.restype = i32
     else:
         ints = _COLUMN_INT_ARGS if name == "column" else _BAND_INT_ARGS
@@ -179,3 +187,13 @@ def launch_band(sweep: str, fld, tab2, tab1, out, *, lx: float, ly: float,
     (band_pair.BandSweepKernel)."""
     _call("band", f"band_{sweep}_launch", (fld, tab2, tab1, out), ints,
           _BAND_INT_ARGS, (lx, ly, lcol, cutmax2), fld.device)
+
+
+def launch_compact(fld, perm, shift, delta, tab2, tab1, out, *,
+                   cutmax2: float, cut2: float, **ints) -> None:
+    """Launch the compacted force sweep on the current stream; raises on a
+    refused launch. Tensors are checked by the caller
+    (mxu_compact.CompactForceKernel)."""
+    _call("compact", "compact_force_launch",
+          (fld, perm, shift, delta, tab2, tab1, out), ints,
+          _COMPACT_INT_ARGS, (cutmax2, cut2), fld.device)

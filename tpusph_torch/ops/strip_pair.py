@@ -742,21 +742,17 @@ def _take(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return v.reshape(-1).index_select(0, idx.reshape(-1)).reshape(idx.shape)
 
 
-def _window_pairs(fld, win: StripWindows, delta, geom: StripGeometry,
-                  c0: int, c1: int, cutmax2: float):
-    """(i slot, j slot, sx, sy, kk) of every pair of columns [c0, c1) that
-    the kernel's windows hold with 1e-12 < rsq < cutmax2; kk is the pair's
-    neighbour-offset index.
-
-    A bounding-box prefilter drops, per group of _GROUP alive i rows,
-    window rows whose distance to the group's box reaches the cutoff. It
-    is exact: float32 subtraction, squaring and addition are monotone, so a
-    pair's rsq, computed in the same order, is never below its group's box
-    distance."""
-    dev = fld.device
+def _window_slots(win: StripWindows, delta, geom: StripGeometry, c0: int,
+                  c1: int):
+    """The kernels' candidate windows of columns [c0, c1): per (column,
+    tile) the nnbr*W window rows in (offset kk, row) order, as (jslot,
+    ok) of shape (k, ntiles, nnbr*W) — the j slot (0 where ``ok`` is
+    false: a row outside its column, or no neighbour column) — and the
+    plane image shift of each window row, (k, nnbr*W, 2)."""
+    dev = win.perm.device
     cap, ts, W = geom.col_cap, geom.ts, geom.w
     nnbr, ntiles, t_blk = geom.nnbr, geom.ntiles, geom.t_blk
-    k, M, ng = c1 - c0, nnbr * W, ts // _GROUP
+    k, M = c1 - c0, nnbr * W
     t = torch.arange(ntiles, device=dev)
     b, tt = t // t_blk, t % t_blk
     pm = win.perm[c0:c1].long()                               # (k, nnbr)
@@ -769,7 +765,27 @@ def _window_pairs(fld, win: StripWindows, delta, geom: StripGeometry,
                         0)
     jslot = jslot.permute(0, 2, 1, 3).reshape(k, ntiles, M)
     ok = ok.permute(0, 2, 1, 3).reshape(k, ntiles, M)
-    shift = win.shift[c0:c1].repeat_interleave(W, dim=1)      # (k, M, 2)
+    return jslot, ok, win.shift[c0:c1].repeat_interleave(W, dim=1)
+
+
+def _window_hits(fld, win: StripWindows, delta, geom: StripGeometry,
+                 c0: int, c1: int, cutmax2: float):
+    """(i slot, j slot, sx, sy, m) of every pair of columns [c0, c1) that
+    the kernel's windows hold with 1e-12 < rsq < cutmax2; m is the j row's
+    index in its tile's window (``_window_slots``' order: offset kk =
+    m // W).
+
+    A bounding-box prefilter drops, per group of _GROUP alive i rows,
+    window rows whose distance to the group's box reaches the cutoff. It
+    is exact: float32 subtraction, squaring and addition are monotone, so a
+    pair's rsq, computed in the same order, is never below its group's box
+    distance."""
+    dev = fld.device
+    cap, ts = geom.col_cap, geom.ts
+    ntiles = geom.ntiles
+    k, M, ng = c1 - c0, geom.nnbr * geom.w, ts // _GROUP
+    jslot, ok, shift = _window_slots(win, delta, geom, c0, c1)
+    t = torch.arange(ntiles, device=dev)
     islot = ((torch.arange(c0, c1, device=dev) * cap)[:, None, None, None]
              + (t * ts)[None, :, None, None]
              + torch.arange(ts, device=dev).reshape(ng, _GROUP))
@@ -801,7 +817,47 @@ def _window_pairs(fld, win: StripWindows, delta, geom: StripGeometry,
     sxy = shift.reshape(-1, 2).index_select(0, col_m.index_select(0, q))
     return (ii.reshape(-1).index_select(0, hit),
             _take(jslot, tile_m).index_select(0, q), sxy[:, 0], sxy[:, 1],
-            (m // W).index_select(0, q))
+            m.index_select(0, q))
+
+
+def _window_pairs(fld, win: StripWindows, delta, geom: StripGeometry,
+                  c0: int, c1: int, cutmax2: float):
+    """``_window_hits`` with the pair's neighbour-offset index kk in place
+    of its window row."""
+    pi, pj, psx, psy, m = _window_hits(fld, win, delta, geom, c0, c1,
+                                       cutmax2)
+    return pi, pj, psx, psy, m // geom.w
+
+
+def _column_step(geom: StripGeometry) -> int:
+    """Columns per chunk of a plain sweep (bounds its temporaries)."""
+    return max(1, _PLAIN_CHUNK * _GROUP // (geom.col_cap * geom.nnbr
+                                             * geom.w))
+
+
+def sum_pairs(out: torch.Tensor, sweep: str, fld: torch.Tensor,
+              sel: torch.Tensor, tabs: DeviceTables, spec: PhysicsSpec,
+              r0: int, r1: int, pi, pj, psx, psy, out_rows=None) -> None:
+    """Add the physics of ``tile_physics`` over the pair list (pi, pj,
+    image shift (psx, psy)), whose i slots lie in [r0, r1), into the
+    sweep's output rows of ``out`` (or ``out_rows``); ``sel`` is
+    fld[_FIELD_ROWS[sweep]]."""
+    rows = _FIELD_ROWS[sweep]
+    h_rows = tile_physics.hoist_i(
+        {r: fld[r, r0:r1] for r in rows}, tabs.tab1, spec, sweep)
+    h = {key: v.index_select(0, pi - r0) for key, v in h_rows.items()}
+    fi = dict(zip(rows, sel.index_select(1, pi)))
+    fj = dict(zip(rows, sel.index_select(1, pj)))
+    # the pair geometry, with the same formula as the filter
+    dx = (fi[RX] - (fj[RX] + psx), fi[RY] - (fj[RY] + psy),
+          fi[RZ] - fj[RZ])
+    rsq_p = dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2]
+    lk = tile_physics.Lookups(tabs.tab2, tabs.tab1, spec,
+                              fi[RTYPE].long(), fj[RTYPE].long())
+    parts = tile_physics.tile_part_sums(fi, fj, h, dx, rsq_p, lk, spec,
+                                        sweep)
+    for row, p in zip(out_rows or _OUT_ROWS[sweep], parts):
+        out[row].index_add_(0, pi, p)
 
 
 def plain_sweep(sweep: str, fld: torch.Tensor, tabs: DeviceTables,
@@ -817,37 +873,22 @@ def plain_sweep(sweep: str, fld: torch.Tensor, tabs: DeviceTables,
     skipped; positions take the plane image shift. Pairs with rsq <= 1e-12
     or beyond the sweep's largest cutoff are dropped first
     (``_window_pairs``), then the physics of ``tile_physics`` runs on the
-    surviving pair list. Returns the (8, n_slots) output matrix with the
-    sweep's O* rows filled."""
+    surviving pair list (``sum_pairs``). Returns the (8, n_slots) output
+    matrix with the sweep's O* rows filled."""
     dev = fld.device
     n, cap = geom.n_slots, geom.col_cap
     out = torch.zeros(8, n, dtype=torch.float32, device=dev)
-    cstep = max(1, _PLAIN_CHUNK * _GROUP // (cap * geom.nnbr * geom.w))
-    rows = _FIELD_ROWS[sweep]
-    sel = fld[list(rows)]                                     # (R, n)
+    cstep = _column_step(geom)
+    sel = fld[list(_FIELD_ROWS[sweep])]                       # (R, n)
     for c0 in range(0, geom.ncols, cstep):
         c1 = min(c0 + cstep, geom.ncols)
         pi, pj, psx, psy, _ = _window_pairs(fld, win, delta, geom, c0, c1,
                                             tabs.cutmax2[sweep])
-        r0, r1 = c0 * cap, c1 * cap
-        h_rows = tile_physics.hoist_i(
-            {r: fld[r, r0:r1] for r in rows}, tabs.tab1, spec, sweep)
-        h = {key: v.index_select(0, pi - r0) for key, v in h_rows.items()}
-        fi = dict(zip(rows, sel.index_select(1, pi)))
-        fj = dict(zip(rows, sel.index_select(1, pj)))
-        # the pair geometry, with the same formula as the filter
-        dx = (fi[RX] - (fj[RX] + psx), fi[RY] - (fj[RY] + psy),
-              fi[RZ] - fj[RZ])
-        rsq_p = dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2]
-        lk = tile_physics.Lookups(tabs.tab2, tabs.tab1, spec,
-                                  fi[RTYPE].long(), fj[RTYPE].long())
         # the kernel skips the capillary terms on tiles flagged <= 0.25;
         # they are exactly zero there (every candidate's colour gradient
         # is), so computing them here gives the same sums
-        parts = tile_physics.tile_part_sums(fi, fj, h, dx, rsq_p, lk, spec,
-                                            sweep)
-        for row, p in zip(_OUT_ROWS[sweep], parts):
-            out[row].index_add_(0, pi, p)
+        sum_pairs(out, sweep, fld, sel, tabs, spec, c0 * cap, c1 * cap, pi,
+                  pj, psx, psy)
     if sweep == "rho":
         out[ORHO] += tile_physics.rho_self(fld, tabs.tab2, spec)
     elif sweep == "cgrad":
@@ -980,7 +1021,7 @@ def plain_vapor_sweep(fld: torch.Tensor, win: StripWindows,
     out = torch.zeros(8, n, dtype=torch.float32, device=dev)
     out[OCGY] = VAPOR_BIG
     out[OFY] = VAPOR_BIG
-    cstep = max(1, _PLAIN_CHUNK * _GROUP // (cap * geom.nnbr * geom.w))
+    cstep = _column_step(geom)
     for c0 in range(0, geom.ncols, cstep):
         c1 = min(c0 + cstep, geom.ncols)
         pi, pj, psx, psy, kk = _window_pairs(fld, win, delta, geom, c0, c1,
