@@ -13,7 +13,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                runs each of the rho / colour-gradient / force sweeps through
                its CUDA kernel and its plain PyTorch version, checks the
                largest difference of each output row against a stated
-               tolerance, and times both with CUDA events.
+               tolerance, and times both with CUDA events; prints the
+               counts of the strip rho / force kernels' phases
+               (strip_pair.warp_pass_counts: candidates, warp box
+               survivors, live pairs, body passes lockstep, with lane
+               lists and with the warp pair queue), and fails if a live
+               pair lies outside its warp's box in that host copy of the
+               kernels' filter (the kernels' own filter is held by phase 6's
+               bitwise comparison).
   4. dynamic — resets the kernels' launch counts, runs the `dynamic` bench
                (tpusph_torch.bench.run_bench: Simulation.run with warmup and
                timed windows), reads the counts, and checks every sweep was
@@ -30,7 +37,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                kernel (rows 0-4 within 2e-4 of the row's largest magnitude on
                the alive rows, no overflow) and against its plain version
                (rows 0-4 within 2e-4 on the owned particles, the overflow
-               row equal and rows 5-6 zero on every slot).
+               row equal and rows 5-6 zero on every slot); fails if any
+               alive row differs bitwise between the strip force kernel and
+               the compacted sweep, and prints phase 3's counts.
   7. uniform — the 1M `uniform` bench (the reference prototype's default),
                5 steps on the strip, then phase 6 on its layout.
   8. uniform main path — resets the counts, runs the `uniform` bench on
@@ -167,6 +176,30 @@ def live_pairs(fld, win, delta, geom, cut2, own, keep=None):
     return total
 
 
+def pass_counts(label, fld, win, delta, geom, cut2):
+    """``strip_pair.warp_pass_counts`` on a strip layout, printed with the
+    ratios that decide the strip rho / force kernels' design; the host copy
+    of the kernels' warp box filter must keep every live pair. Returns the
+    counts."""
+    from tpusph_torch.ops import strip_pair
+    c = strip_pair.warp_pass_counts(fld, win, delta, geom, cut2)
+    rows, warps = max(c["rows"], 1), max(c["warps"], 1)
+    print(f"  {label} counts: {json.dumps(c)}")
+    print(f"  {label}: per row {c['candidates'] / rows:.1f} candidates, "
+          f"{c['live_pairs'] / rows:.1f} live pairs; per warp "
+          f"{c['box_survivors'] / warps:.1f} box survivors, body passes "
+          f"{c['old_passes'] / warps:.1f} lockstep, "
+          f"{c['list_passes'] / warps:.1f} lane lists, "
+          f"{c['queue_passes'] / warps:.1f} queue "
+          f"({c['old_passes'] / max(c['queue_passes'], 1):.2f}x fewer); "
+          "lanes working in a body pass "
+          f"{c['live_pairs'] / (32 * max(c['old_passes'], 1)):.1%}, "
+          f"{c['live_pairs'] / (32 * max(c['list_passes'], 1)):.1%}, "
+          f"{c['live_pairs'] / (32 * max(c['queue_passes'], 1)):.1%}")
+    assert c["live_outside_box"] == 0, c
+    return c
+
+
 def bound(name, n_rows, ops):
     """(bound_ms, bound_by) of one launch over ``n_rows`` owned alive
     particles (each input row read once, each output row written once; the
@@ -265,6 +298,8 @@ def hold_to_plain(sim, names, after_run=False, reps=10):
         print(f"  live pairs {npairs} ({npairs / n_own:.1f} per particle), "
               f"in tiles flagged > 0.25: {mixed[0.25]}, > 0.75: "
               f"{mixed[0.75]}")
+        counts = pass_counts(f"W {geom.w} t_blk {geom.t_blk}", fld,
+                             backend.win, aux.delta, geom, cut2)
     rows = {"rho": (ORHO,), "cgrad": (OCGX, OCGY, ODE),
             "force": (OFX, OFY, OFZ, ODRHO, ODE)}
     for sweep in sweeps:
@@ -282,6 +317,8 @@ def hold_to_plain(sim, names, after_run=False, reps=10):
         errs = compare_rows(sweep, sweep, out_k, out_p, alive, rows[sweep])
         report[sweep] = dict(max_abs_err=max(errs), **timed(
             sweep, run_kernel, run_plain, n_own, ops[sweep], reps))
+        if sweep != "cgrad":
+            report[sweep]["warp_passes"] = counts
         if sweep == "rho":
             total = out_p[ORHO] * state.rmass if spec.rhosum_nd \
                 else out_p[ORHO]
@@ -381,6 +418,17 @@ def hold_compact(sim, label, reps=10):
         assert err <= KERNEL_RTOL["force"], (label, name, err)
     print(f"  {label}: overflow rows {rep['overflow_rows']} (must be 0)")
     assert rep["overflow_rows"] == 0, rep["overflow_rows"]
+    # the same pairs summed in the same order through the same pair body,
+    # each kernel with its own filter: equal bit for bit on every alive row
+    # (a pair the strip force's warp box dropped would show here)
+    alive = inp.state.alive
+    rows5 = [OFX, OFY, OFZ, ODRHO, ODE]
+    differ = int((proto.run_strip(inp)[rows5][:, alive]
+                  != proto.run_compact(inp)[rows5][:, alive]).any(0).sum())
+    print(f"  {label}: alive rows whose rows 0-4 differ bitwise between the "
+          f"strip force and the compacted sweep: {differ} of "
+          f"{int(alive.sum())} (must be 0)")
+    assert differ == 0, (label, differ)
 
     def run_kernel():
         return proto.run_compact(inp)
@@ -417,6 +465,8 @@ def hold_compact(sim, label, reps=10):
     ops = PAIR_OPS["force"] * npairs + PAIR_OPS["force_st"] * st_pairs
     print(f"  {label}: live pairs {npairs}, in tiles flagged > 0.25: "
           f"{st_pairs}")
+    counts = pass_counts(f"{label} W {geom.w} t_blk {geom.t_blk}", fld,
+                         inp.backend.win, inp.aux.delta, geom, cut2)
     times = timed(f"{label} compact", run_kernel, run_plain, int(own.sum()),
                   ops, reps, kind="force")
     torch.cuda.synchronize()
@@ -424,7 +474,8 @@ def hold_compact(sim, label, reps=10):
                 strip_force_ms=rep["strip_force_ms"],
                 ms_beside_strip=rep["compact_force_ms"], P=inp.P, W=geom.w,
                 lane_ratio=rep["lane_ratio"],
-                overflow_rows=rep["overflow_rows"], **times)
+                overflow_rows=rep["overflow_rows"], rows_differ_bitwise=differ,
+                warp_passes=counts, **times)
 
 
 def uniform_compact(n):

@@ -74,12 +74,15 @@ def device():
 
 
 def lattice(dim, nside, periodic, seed, device, dx=0.5, jitter=True,
-            uniform=False):
+            uniform=False, hfac=2.2, shape=None):
     """A jittered (or exact) two-type lattice with random v, rho, e (the
     JAX tests' lattice_system, built here with numpy alone); ``uniform``
-    makes every pair table uniform over the two types with one cutoff."""
+    makes every pair table uniform over the two types with one cutoff.
+    Cutoffs are ``hfac`` spacings; ``shape`` (sites per axis) and a tuple
+    ``periodic`` (per axis) override the cube of ``nside``."""
     rng = np.random.default_rng(seed)
-    ax = [np.arange(nside) * dx] * dim
+    shape = shape or (nside,) * dim
+    ax = [np.arange(m) * dx for m in shape]
     pts = np.stack(np.meshgrid(*ax, indexing="ij"), -1).reshape(-1, dim)
     if dim == 2:
         pts = np.concatenate([pts, np.zeros((len(pts), 1))], axis=1)
@@ -94,12 +97,12 @@ def lattice(dim, nside, periodic, seed, device, dx=0.5, jitter=True,
         pts.astype(np.float32), rng.integers(1, 3, n), np.full(n, 0.1), v=v,
         rho=rng.uniform(0.9, 1.2, n), e=rng.uniform(0.5, 1.5, n),
         capacity=((n + 127) // 128) * 128, device=device)
-    L = nside * dx
-    box = Box.create([0, 0, 0], [L, L, L if dim == 3 else 1.0],
-                     (periodic, periodic, periodic and dim == 3),
-                     device=device)
+    L = [m * dx for m in shape] + [1.0]
+    if not isinstance(periodic, tuple):
+        periodic = (periodic, periodic, periodic and dim == 3)
+    box = Box.create([0, 0, 0], L[:3], periodic, device=device)
     tables = PairTables.zeros(2)
-    h = 2.2 * dx
+    h = hfac * dx
     for i, j in ((1, 2), (1, 1), (2, 2)):
         tables.set_taitwater(i, j, rho0=1.0, c0=6.0, viscosity=0.4, h=h)
         tables.set_rhosum(i, j, h=h)
@@ -124,26 +127,29 @@ def check_rows(sweep, out_k, out_p, alive):
         assert err <= RTOL[sweep] * scale, (sweep, r, err, scale)
 
 
-@pytest.mark.parametrize("name,dim,periodic", [
-    ("bench", 3, True), ("bench", 3, False), ("morris_virial", 3, True),
-    ("idealgas_cubic", 3, True), ("lj_quintic", 3, False),
-    ("heatpc_wendland_st", 3, True), ("bench", 2, True),
-    ("heatpc_wendland_st", 2, False),
-])
-def test_kernels_match_plain_versions(device, name, dim, periodic):
-    st, box, tables = lattice(dim, 12 if dim == 3 else 40, periodic,
-                              seed=dim + 7, device=device)
+def strip_layout(st, box, tables, dim, device,
+                 candidates=strip_pair.DEFAULT_TS_CH, t_blk=None):
+    """(backend, state, aux) of the strip layout of a lattice, its tile rows
+    and window chunks chosen from ``candidates`` (and ``t_blk`` tiles a
+    block where given)."""
     x = st.x[st.alive].cpu().numpy()
     geom = strip_pair.choose_strip_geometry(box, tables.max_cut(), dim, 0.2,
-                                            x=x)
+                                            x=x, candidates=candidates)
     assert geom is not None
+    if t_blk is not None:
+        geom = geom._replace(t_blk=t_blk)
     backend = strip_pair.StripBackend(geom, ntypes=2, device=device)
     st, aux = backend.init_aux(st, box)
     assert int(aux.overflow.sum()) == 0
-    spec = PhysicsSpec(dim=dim, **SPECS[name])
-    tabs = tables.stacked(device)
-    fld = pack_fields(st, aux.mix)
-    alive = st.alive
+    return backend, st, aux
+
+
+def strip_sweeps_match_plain(backend, st, aux, fld, tabs, spec):
+    """The three strip sweep kernels against their plain versions on the
+    alive rows of ``fld``, each launch counted, fed as the force stage
+    feeds them (rho patched before cgrad, cg before force)."""
+    geom = backend.geom
+    alive = fld[RTYPE] > 0.5
     for sweep in ("rho", "cgrad", "force"):
         kern = strip_pair.SWEEPS[sweep]
         n0 = kern.launches
@@ -160,6 +166,94 @@ def test_kernels_match_plain_versions(device, name, dim, periodic):
         elif sweep == "cgrad":
             cg = torch.stack([out_p[OCGX], out_p[OCGY], out_p[ODE]])
             fld[RCGX:RCGZ + 1] = torch.where(alive, cg, 0.0)
+
+
+@pytest.mark.parametrize("name,dim,periodic", [
+    ("bench", 3, True), ("bench", 3, False), ("morris_virial", 3, True),
+    ("idealgas_cubic", 3, True), ("lj_quintic", 3, False),
+    ("heatpc_wendland_st", 3, True), ("bench", 2, True),
+    ("heatpc_wendland_st", 2, False),
+])
+def test_kernels_match_plain_versions(device, name, dim, periodic):
+    st, box, tables = lattice(dim, 12 if dim == 3 else 40, periodic,
+                              seed=dim + 7, device=device)
+    backend, st, aux = strip_layout(st, box, tables, dim, device)
+    spec = PhysicsSpec(dim=dim, **SPECS[name])
+    strip_sweeps_match_plain(backend, st, aux, pack_fields(st, aux.mix),
+                             tables.stacked(device), spec)
+
+
+def most_pairs_in_one_offset(fld, backend, aux, cut2):
+    """The most live pairs one warp of 32 i rows has in one neighbour
+    column: what the strip force kernel's pair queue takes in one offset."""
+    geom = backend.geom
+    pi, _, _, _, kk = strip_pair._window_pairs(fld, backend.win, aux.delta,
+                                               geom, 0, geom.ncols, cut2)
+    warp = strip_pair._warp_ids(pi, geom)
+    return int(torch.bincount(warp * geom.nnbr + kk).max())
+
+
+@pytest.mark.parametrize("name,dim,shape,periodic,hfac", [
+    # 3D: about 330 neighbours a row; 2D: about 110
+    ("bench", 3, (20, 20, 12), (True, True, False), 4.5),
+    ("heatpc_wendland_st", 3, (20, 20, 12), (True, True, False), 4.5),
+    ("bench", 2, (40, 40), True, 6.0),
+])
+def test_strip_queue_flushes_on_dense_lattices(device, name, dim, shape,
+                                               periodic, hfac):
+    """Lattices so dense that the force kernel's 128-entry warp pair queue
+    fills and runs many times inside one neighbour column: every sweep
+    still matches its plain version."""
+    st, box, tables = lattice(dim, 0, periodic, seed=dim + 31,
+                              device=device, hfac=hfac, shape=shape)
+    backend, st, aux = strip_layout(st, box, tables, dim, device)
+    spec = PhysicsSpec(dim=dim, **SPECS[name])
+    tabs = tables.stacked(device)
+    fld = pack_fields(st, aux.mix)
+    most = most_pairs_in_one_offset(fld, backend, aux, tabs.cutmax2["force"])
+    assert most > 4 * 128, most
+    strip_sweeps_match_plain(backend, st, aux, fld, tabs, spec)
+
+
+@pytest.mark.parametrize("ts_ch,t_blk", [((48, 16), None), ((16, 8), None),
+                                         ((48, 16), 1)])
+def test_strip_filter_warps_across_tiles(device, ts_ch, t_blk):
+    """Tiles of 48 or 16 rows: a warp's 32 lanes lie in two tiles with two
+    windows, and a block of one 48-row tile has a second warp of 16 lanes;
+    every sweep matches its plain version."""
+    st, box, tables = lattice(3, 12, True, seed=43, device=device)
+    backend, st, aux = strip_layout(st, box, tables, 3, device,
+                                    candidates=(ts_ch,), t_blk=t_blk)
+    assert backend.geom.ts == ts_ch[0]
+    spec = PhysicsSpec(dim=3, **SPECS["bench"])
+    strip_sweeps_match_plain(backend, st, aux, pack_fields(st, aux.mix),
+                             tables.stacked(device), spec)
+
+
+@pytest.mark.parametrize("name", ["bench", "morris_virial"])
+def test_strip_filter_warp_with_one_alive_row(device, name):
+    """Warps of one alive row among 31 dead ones (every fourth warp keeps
+    one lane, the others keep all): the warp's box is that row's point
+    dilated by the cutoff, and every sweep matches its plain version."""
+    st, box, tables = lattice(3, 12, True, seed=41, device=device)
+    backend, st, aux = strip_layout(st, box, tables, 3, device)
+    geom = backend.geom
+    fld = pack_fields(st, aux.mix)
+    slots = torch.arange(geom.n_slots, device=device)
+    wid = strip_pair._warp_ids(slots, geom)
+    alive = fld[RTYPE] > 0.5
+    n_alive = torch.zeros(int(wid.max()) + 1, dtype=torch.long,
+                          device=device).index_add_(0, wid, alive.long())
+    thin = (wid % 4 == 0) & (n_alive[wid] == 32)
+    kill = thin & alive & (slots % 32 != wid % 32)
+    for r in range(fld.shape[0]):
+        fld[r, kill] = band_pair.dead_lane_fill(r)
+    alive = fld[RTYPE] > 0.5
+    kept = torch.zeros_like(n_alive).index_add_(0, wid, alive.long())
+    assert int(((kept == 1) & (n_alive == 32)).sum()) >= 4
+    spec = PhysicsSpec(dim=3, **SPECS[name])
+    strip_sweeps_match_plain(backend, st, aux, fld, tables.stacked(device),
+                             spec)
 
 
 def test_force_stage_on_card_matches_cpu(device):

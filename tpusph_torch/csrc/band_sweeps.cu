@@ -82,7 +82,7 @@ band_sweep_kernel(const float* __restrict__ fld,
   extern __shared__ float smem[];
   // per staged sub-cell, one past its last live rank
   __shared__ int reach[kMaxStaged];
-  const Tables tb = load_tables(smem, tab2g, tab1g, p.T1);
+  const Tables tb = load_tables(smem, tab2g, tab1g, p);
   const int nsw = g.G + 2 * g.k;
   const int ld = nsw * g.c;
   float* win = smem + table_floats(p.T1);  // [NF][ld]

@@ -75,7 +75,7 @@ column_sweep_kernel(const float* __restrict__ fld,
   extern __shared__ float smem[];
   // per staged cell, one past its last live row
   __shared__ int reach[3];
-  const Tables tb = load_tables(smem, tab2g, tab1g, p.T1);
+  const Tables tb = load_tables(smem, tab2g, tab1g, p);
   float* win = smem + table_floats(p.T1);  // [NF][3 * cap]
   const int ld = 3 * g.cap;
 

@@ -50,10 +50,10 @@
 // could not take another step's survivors, every alive i sums over it and
 // it empties. Counting goes on past P, for OCNT.
 //
-// What bounds it: instruction throughput. The strip force sweep scans
-// nnbr*W candidates per i row (about 3.5k at W 384), a few percent live;
-// here each window row is tested once per tile, not once per i row, and an
-// i row's pair loop runs over the tile's survivors only (about P). Shared
+// What bounds it: instruction throughput. Of the nnbr*W window rows per i
+// row (about 3.5k at W 384) a few percent are live; here each window row is
+// tested once per tile, not once per i row, and an i row's pair loop runs
+// over the tile's survivors only (about P). Shared
 // memory is a fixed kStage rows, whatever P is; registers are capped at 64
 // a thread (sixteen 64-thread blocks per SM), as in the other sweeps.
 // Built without fast-math: IEEE divides and square roots.
@@ -119,7 +119,7 @@ compact_force_kernel(const float* __restrict__ fld,
   extern __shared__ float smem[];
   __shared__ float s_box[6][kWarps];
   __shared__ int s_cnt[2][kWarps];
-  const Tables tb = load_tables(smem, tab2g, tab1g, p.T1);
+  const Tables tb = load_tables(smem, tab2g, tab1g, p);
   float* win = smem + table_floats(p.T1);    // [SF_NF][kStage]
 
   const int n = g.n_slots;

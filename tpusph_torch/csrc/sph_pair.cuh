@@ -1,10 +1,13 @@
-// Pair physics shared by the strip sweeps (strip_sweeps.cu) and the column
-// sweeps (column_sweeps.cu): the smoothing kernels, the equations of state,
-// and for each sweep how a block stages one j row in shared memory, what
-// one (i, j) pair adds to i's sums, and how i's sums are written. The forms
+// Pair physics shared by the strip, column, band and compacted sweeps
+// (strip_sweeps.cu, column_sweeps.cu, band_sweeps.cu, compact_force.cu): the
+// smoothing kernels, the equations of state, and for each sweep how a block
+// stages one j row in shared memory, what one (i, j) pair adds to i's sums,
+// and how i's sums are written. The forms
 // mirror tpusph_torch/ops/tile_physics.py term by term; every kernel that
 // includes this header is held against the plain PyTorch version built on
-// that module. Compiled without fast-math: IEEE divides and square roots.
+// that module. Compiled without fast-math: IEEE divides and square roots;
+// the smoothing kernels' divides by per type-pair constants are done once
+// per block (load_tables), not once per pair.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -72,79 +75,118 @@ __device__ __forceinline__ float pos4(float x) {
   return p2 * p2;
 }
 
-__device__ inline float kern_w(int kern, int dim, float r, float cut) {
+// Per type-pair constants of one cutoff table, cached in shared memory by
+// load_tables: every value that kern_w / kern_wfd derive from the cutoff
+// alone, each formed with the float32 expression, in the order, of the
+// per-pair form (tpusph/kernels.py), so the cached value is expected to be
+// bit for bit the one a pair would compute (a product the per-pair form let
+// the compiler contract into an FMA could differ; the sweeps are held to
+// their plain versions' tolerance bars). What is left per pair is the
+// r-dependent arithmetic (and, for the spline kernels, the divides by h and
+// h*h whose operands depend on r: replacing them by reciprocals would
+// change the bits).
+//   cut   fmaxf(table cut, 1e-30): the smoothing length the kernels take
+//   cut2  table cut squared where the cut is positive, else 0: the pair's
+//         cutoff test (the pair is live, so rsq > 1e-12 > 0 fails it)
+//   Lucy      k0 s6 = ((s/cut)/cut)/cut   k1 1/cut   k2 (s5/cut)/cut
+//   cubic     k0 s                        k1 h       k2 h*h
+//   quintic   k0 s                        k1 h       k2 h*h
+//   Wendland  k0 s4 = (((s/cut)/cut)/cut)/cut   k1 1/cut   k2 s5/cut
+struct KConst {
+  float cut, cut2, k0, k1, k2;
+};
+enum { KC_NF = 5 };
+// the cutoff tables the sweeps read, in cache order
+enum { KC_CUT = 0, KC_HEAT, KC_TEN, KC_RHO, KC_NT };
+
+__device__ inline KConst make_kconst(int kern, int dim, float raw) {
+  KConst c;
+  const float cut = fmaxf(raw, 1e-30f);
+  c.cut = cut;
+  c.cut2 = raw > 0.f ? raw * raw : 0.f;
   if (kern == K_LUCY) {
-    float s = dim == 3 ? (float)(105.0 / (16.0 * kPi)) / (cut * cut * cut)
-                       : (float)(5.0 / kPi) / (cut * cut);
-    float icut = 1.f / cut;
-    float q = clampf(r * icut, 0.f, 1.f);
-    float s6 = ((s / cut) / cut) / cut;
-    float d = fmaxf(cut - r, 0.f);
-    return r < cut ? s6 * (1.f + 3.f * q) * d * d * d : 0.f;
+    const float s = dim == 3
+        ? (float)(105.0 / (16.0 * kPi)) / (cut * cut * cut)
+        : (float)(5.0 / kPi) / (cut * cut);
+    const float s5 = ((-12.f * s) / cut) / cut;
+    c.k0 = ((s / cut) / cut) / cut;
+    c.k1 = 1.f / cut;
+    c.k2 = (s5 / cut) / cut;
+  } else if (kern == K_CUBIC) {
+    const float h = cut / 2.f;
+    c.k0 = dim == 3 ? 1.f / ((float)kPi * h * h * h)
+                    : 10.f / ((float)(7.0 * kPi) * h * h);
+    c.k1 = h;
+    c.k2 = h * h;
+  } else if (kern == K_QUINTIC) {
+    const float h = cut / 3.f;
+    c.k0 = dim == 3 ? 1.f / ((float)(120.0 * kPi) * h * h * h)
+                    : 7.f / ((float)(478.0 * kPi) * h * h);
+    c.k1 = h;
+    c.k2 = h * h;
+  } else {
+    const float s = dim == 3
+        ? (float)(21.0 / (2.0 * kPi)) / (cut * cut * cut)
+        : (float)(7.0 / kPi) / (cut * cut);
+    const float s5 = ((((-20.f * s) / cut) / cut) / cut) / cut;
+    c.k0 = (((s / cut) / cut) / cut) / cut;
+    c.k1 = 1.f / cut;
+    c.k2 = s5 / cut;
   }
-  if (kern == K_CUBIC) {
-    float h = cut / 2.f;
-    float u = clampf(r / h, 0.f, 2.f);
-    float s = dim == 3 ? 1.f / ((float)kPi * h * h * h)
-                       : 10.f / ((float)(7.0 * kPi) * h * h);
-    float inner = 1.f - 1.5f * u * u + 0.75f * u * u * u;
-    float tmu = 2.f - u;
-    float outer = 0.25f * tmu * tmu * tmu;
-    return r < cut ? s * (u <= 1.f ? inner : outer) : 0.f;
-  }
-  if (kern == K_QUINTIC) {
-    float h = cut / 3.f;
-    float u = clampf(r / h, 0.f, 3.f);
-    float s = dim == 3 ? 1.f / ((float)(120.0 * kPi) * h * h * h)
-                       : 7.f / ((float)(478.0 * kPi) * h * h);
-    float val = pos5(3.f - u) - 6.f * pos5(2.f - u) + 15.f * pos5(1.f - u);
-    return r < cut ? s * val : 0.f;
-  }
-  // Wendland C2
-  float s = dim == 3 ? (float)(21.0 / (2.0 * kPi)) / (cut * cut * cut)
-                     : (float)(7.0 / kPi) / (cut * cut);
-  float icut = 1.f / cut;
-  float q = clampf(r * icut, 0.f, 1.f);
-  float s4 = (((s / cut) / cut) / cut) / cut;
-  float d = fmaxf(cut - r, 0.f);
-  float d2 = d * d;
-  return r < cut ? s4 * d2 * d2 * (4.f * q + 1.f) : 0.f;
+  return c;
 }
 
-__device__ inline float kern_wfd(int kern, int dim, float r, float cut) {
+__device__ inline float kern_w(int kern, float r, const KConst& c) {
+  const float cut = c.cut;
   if (kern == K_LUCY) {
-    float s = dim == 3 ? (float)(105.0 / (16.0 * kPi)) / (cut * cut * cut)
-                       : (float)(5.0 / kPi) / (cut * cut);
-    float s5 = ((-12.f * s) / cut) / cut;
-    float d = fmaxf(cut - r, 0.f);
-    return r < cut ? (s5 / cut) / cut * (d * d) : 0.f;
+    const float q = clampf(r * c.k1, 0.f, 1.f);
+    const float d = fmaxf(cut - r, 0.f);
+    return r < cut ? c.k0 * (1.f + 3.f * q) * d * d * d : 0.f;
   }
   if (kern == K_CUBIC) {
-    float h = cut / 2.f;
-    float u = clampf(r / h, 0.f, 2.f);
-    float s = dim == 3 ? 1.f / ((float)kPi * h * h * h)
-                       : 10.f / ((float)(7.0 * kPi) * h * h);
-    float tmu = 2.f - u;
-    float inner = s * (-3.f + 2.25f * u) / (h * h);
-    float r_safe = r > 0.f ? r : 1.f;
-    float outer = s * (-0.75f * tmu * tmu) / (h * r_safe);
+    const float u = clampf(r / c.k1, 0.f, 2.f);
+    const float inner = 1.f - 1.5f * u * u + 0.75f * u * u * u;
+    const float tmu = 2.f - u;
+    const float outer = 0.25f * tmu * tmu * tmu;
+    return r < cut ? c.k0 * (u <= 1.f ? inner : outer) : 0.f;
+  }
+  if (kern == K_QUINTIC) {
+    const float u = clampf(r / c.k1, 0.f, 3.f);
+    const float val = pos5(3.f - u) - 6.f * pos5(2.f - u)
+        + 15.f * pos5(1.f - u);
+    return r < cut ? c.k0 * val : 0.f;
+  }
+  // Wendland C2
+  const float q = clampf(r * c.k1, 0.f, 1.f);
+  const float d = fmaxf(cut - r, 0.f);
+  const float d2 = d * d;
+  return r < cut ? c.k0 * d2 * d2 * (4.f * q + 1.f) : 0.f;
+}
+
+__device__ inline float kern_wfd(int kern, float r, const KConst& c) {
+  const float cut = c.cut;
+  if (kern == K_LUCY) {
+    const float d = fmaxf(cut - r, 0.f);
+    return r < cut ? c.k2 * (d * d) : 0.f;
+  }
+  if (kern == K_CUBIC) {
+    const float h = c.k1;
+    const float u = clampf(r / h, 0.f, 2.f);
+    const float tmu = 2.f - u;
+    const float inner = c.k0 * (-3.f + 2.25f * u) / c.k2;
+    const float r_safe = r > 0.f ? r : 1.f;
+    const float outer = c.k0 * (-0.75f * tmu * tmu) / (h * r_safe);
     return r < cut ? (u <= 1.f ? inner : outer) : 0.f;
   }
   if (kern == K_QUINTIC) {
-    float h = cut / 3.f;
-    float u = clampf(r / h, 0.f, 3.f);
-    float s = dim == 3 ? 1.f / ((float)(120.0 * kPi) * h * h * h)
-                       : 7.f / ((float)(478.0 * kPi) * h * h);
-    float dwdu = -5.f * (pos4(3.f - u) - 6.f * pos4(2.f - u)
-                         + 15.f * pos4(1.f - u));
-    float ratio = u > 1e-6f ? dwdu / u : -120.f;
-    return r < cut ? s * ratio / (h * h) : 0.f;
+    const float u = clampf(r / c.k1, 0.f, 3.f);
+    const float dwdu = -5.f * (pos4(3.f - u) - 6.f * pos4(2.f - u)
+                               + 15.f * pos4(1.f - u));
+    const float ratio = u > 1e-6f ? dwdu / u : -120.f;
+    return r < cut ? c.k0 * ratio / c.k2 : 0.f;
   }
-  float s = dim == 3 ? (float)(21.0 / (2.0 * kPi)) / (cut * cut * cut)
-                     : (float)(7.0 / kPi) / (cut * cut);
-  float s5 = ((((-20.f * s) / cut) / cut) / cut) / cut;
-  float d = fmaxf(cut - r, 0.f);
-  return r < cut ? (s5 / cut) * d * d * d : 0.f;
+  const float d = fmaxf(cut - r, 0.f);
+  return r < cut ? c.k2 * d * d * d : 0.f;
 }
 
 // ---- equation of state (tile_physics.eos_over_rhosq) ---------------------
@@ -188,13 +230,16 @@ __device__ inline float gas_sound_speed(int flags, float rho, float e,
 // ---- coefficient tables in shared memory --------------------------------
 
 __host__ __device__ __forceinline__ int table_floats(int T1) {
-  return 8 * T1 * T1 + 5 * T1;
+  return 8 * T1 * T1 + 5 * T1 + KC_NF * KC_NT * T1 * T1;
 }
 
-// tab2 [8][T1][T1] and tab1 [5][T1] (params.DeviceTables) in shared memory
+// tab2 [8][T1][T1] and tab1 [5][T1] (params.DeviceTables) in shared memory,
+// and the smoothing-kernel constants of the four cutoff tables,
+// [KC_NF][KC_NT][T1][T1]
 struct Tables {
   const float* t2;
   const float* t1;
+  const float* kt;
   int T1;
   __device__ __forceinline__ float c2(int t, int a, int b) const {
     return t2[(t * T1 + a) * T1 + b];
@@ -202,17 +247,39 @@ struct Tables {
   __device__ __forceinline__ float c1(int t, int a) const {
     return t1[t * T1 + a];
   }
+  __device__ __forceinline__ KConst kc(int t, int a, int b) const {
+    const int stride = KC_NT * T1 * T1;
+    const float* e = kt + (t * T1 + a) * T1 + b;
+    return KConst{e[0], e[stride], e[2 * stride], e[3 * stride],
+                  e[4 * stride]};
+  }
 };
 
-// Copies the tables to the start of `smem`; the caller's next barrier
-// publishes them.
+// Copies the tables to the start of `smem` and derives the kernel constants
+// from them; the caller's next barrier publishes both.
 __device__ __forceinline__ Tables load_tables(float* smem, const float* tab2g,
-                                              const float* tab1g, int T1) {
+                                              const float* tab1g,
+                                              const Phys& p) {
+  const int T1 = p.T1;
   float* t2 = smem;
   float* t1 = smem + 8 * T1 * T1;
+  float* kt = t1 + 5 * T1;
   for (int k = threadIdx.x; k < 8 * T1 * T1; k += blockDim.x) t2[k] = tab2g[k];
   for (int k = threadIdx.x; k < 5 * T1; k += blockDim.x) t1[k] = tab1g[k];
-  return Tables{t2, t1, T1};
+  const int stride = KC_NT * T1 * T1;
+  for (int k = threadIdx.x; k < stride; k += blockDim.x) {
+    const int t = k / (T1 * T1), ab = k - t * T1 * T1;
+    const int src = t == KC_CUT ? T_CUT
+                  : t == KC_HEAT ? T_CUTHEAT
+                  : t == KC_TEN ? T_CUTTEN : T_CUTRHO;
+    const KConst c = make_kconst(p.kern, p.dim, tab2g[src * T1 * T1 + ab]);
+    kt[k] = c.cut;
+    kt[stride + k] = c.cut2;
+    kt[2 * stride + k] = c.k0;
+    kt[3 * stride + k] = c.k1;
+    kt[4 * stride + k] = c.k2;
+  }
+  return Tables{t2, t1, kt, T1};
 }
 
 // ---- the i row: values hoisted out of the candidate loop ----------------
@@ -333,38 +400,53 @@ __device__ __forceinline__ void stage_j(float* __restrict__ win, int ld, int k,
 
 // ---- one pair: staged row k's contribution to i's sums ------------------
 // acc: rho [0]; cgrad [0..2] the colour gradient; force [0..5] f, drho, de,
-// virial. A candidate is rejected on rsq (self-pair, far-staged row, beyond
-// the sweep's largest cutoff) before any table lookup.
+// virial. A candidate is live when 1e-12 < rsq < the sweep's largest
+// squared cutoff (pair_live: a self-pair, a far-staged row and a row beyond
+// every cutoff fail it); pair_body adds a live pair's terms. pair_sum is
+// both, for the sweeps that test every candidate in the body's loop; the
+// strip rho and force sweeps test first and run the body on the live pairs
+// (strip_sweeps.cu). Both paths form dx and rsq with pair_rsq, so they keep
+// the same pairs and sum the same bits.
+
+__device__ __forceinline__ float pair_rsq(const float* __restrict__ win,
+                                          int ld, int k, const IRow& ir,
+                                          float& dx0, float& dx1,
+                                          float& dx2) {
+  dx0 = ir.x - win[0 * ld + k];
+  dx1 = ir.y - win[1 * ld + k];
+  dx2 = ir.z - win[2 * ld + k];
+  return dx0 * dx0 + dx1 * dx1 + dx2 * dx2;
+}
+
+__device__ __forceinline__ bool pair_live(float rsq, float cutmax2) {
+  return rsq > 1e-12f && rsq < cutmax2;
+}
 
 template <int SWEEP>
-__device__ __forceinline__ void pair_sum(const float* __restrict__ win,
-                                         int ld, int k, const IRow& ir,
-                                         const Tables& tb, const Phys& p,
-                                         float acc[6]) {
-  const float dx0 = ir.x - win[0 * ld + k];
-  const float dx1 = ir.y - win[1 * ld + k];
-  const float dx2 = ir.z - win[2 * ld + k];
-  const float rsq = dx0 * dx0 + dx1 * dx1 + dx2 * dx2;
-  if (!(rsq > 1e-12f) || !(rsq < p.cutmax2)) return;
+__device__ __forceinline__ void pair_body(const float* __restrict__ win,
+                                          int ld, int k, const IRow& ir,
+                                          const Tables& tb, const Phys& p,
+                                          float dx0, float dx1, float dx2,
+                                          float rsq, float acc[6]) {
   const float r = sqrtf(fmaxf(rsq, 1e-30f));
   const int flags = p.flags;
   const int ti = ir.t;
 
   if (SWEEP == SW_RHO) {
     const int tj = (int)win[SR_TYPE * ld + k];
-    const float cut = tb.c2(T_CUTRHO, ti, tj);
-    if (rsq < cut * cut && cut > 0.f) {
+    const KConst kc = tb.kc(KC_RHO, ti, tj);
+    if (rsq < kc.cut2) {
       const float mass = (flags & FL_ND) ? 1.f : win[SR_M * ld + k];
-      acc[0] += mass * kern_w(p.kern, p.dim, r, fmaxf(cut, 1e-30f));
+      acc[0] += mass * kern_w(p.kern, r, kc);
     }
   } else if (SWEEP == SW_CGRAD) {
     const int tj = (int)win[SC_TYPE * ld + k];
     // a pair of one colour adds exactly zero
     const float dcolor = tb.c1(V_COLOR, tj) - ir.color;
     if (dcolor == 0.f) return;
-    const float cut = tb.c2(T_CUTTEN, ti, tj);
-    if (rsq < cut * cut && cut > 0.f) {
-      const float wfd = kern_wfd(p.kern, p.dim, r, fmaxf(cut, 1e-30f));
+    const KConst kc = tb.kc(KC_TEN, ti, tj);
+    if (rsq < kc.cut2) {
+      const float wfd = kern_wfd(p.kern, r, kc);
       const float coef = tb.c2(T_SIGMA, ti, tj) * win[SC_MRHO * ld + k]
           * dcolor * wfd;
       acc[0] += coef * dx0;
@@ -383,9 +465,9 @@ __device__ __forceinline__ void pair_sum(const float* __restrict__ win,
     const float dvdr = dv0 * dx0 + dv1 * dx1 + dv2 * dx2;
     float f0 = 0.f, f1 = 0.f, f2 = 0.f, drho = 0.f, de = 0.f;
     if (has_eos(flags)) {
-      const float cut = tb.c2(T_CUT, ti, tj);
-      if (rsq < cut * cut && cut > 0.f) {
-        const float wfd = kern_wfd(p.kern, p.dim, r, fmaxf(cut, 1e-30f));
+      const KConst kc = tb.kc(KC_CUT, ti, tj);
+      if (rsq < kc.cut2) {
+        const float wfd = kern_wfd(p.kern, r, kc);
         const float fj = win[SF_FJ * ld + k];
         const float visc = tb.c2(T_VISC, ti, tj);
         if (flags & FL_MORRIS) {
@@ -398,7 +480,7 @@ __device__ __forceinline__ void pair_sum(const float* __restrict__ win,
           const float dvsq = dv0 * dv0 + dv1 * dv1 + dv2 * dv2;
           de += -0.5f * (fpair * dvdr + fvisc * dvsq);
         } else {
-          const float h_ij = fmaxf(cut, 1e-30f);
+          const float h_ij = kc.cut;
           const float cj = win[SF_CJ * ld + k];
           // mu and the Monaghan prefactor fused into one divide
           const float fvisc = dvdr < 0.f
@@ -415,9 +497,9 @@ __device__ __forceinline__ void pair_sum(const float* __restrict__ win,
       }
     }
     if (flags & (FL_HEAT | FL_HEATPC)) {
-      const float cut = tb.c2(T_CUTHEAT, ti, tj);
-      if (rsq < cut * cut && cut > 0.f) {
-        const float wfd = kern_wfd(p.kern, p.dim, r, fmaxf(cut, 1e-30f));
+      const KConst kc = tb.kc(KC_HEAT, ti, tj);
+      if (rsq < kc.cut2) {
+        const float wfd = kern_wfd(p.kern, r, kc);
         const float coef = (2.f * m_i * m_j / (m_i + m_j))
             * (inv_rho_i + inv_rho_j);
         float ediff = ir.e - win[SF_E * ld + k];
@@ -430,9 +512,9 @@ __device__ __forceinline__ void pair_sum(const float* __restrict__ win,
       }
     }
     if (ir.st) {
-      const float cut = tb.c2(T_CUTTEN, ti, tj);
-      if (rsq < cut * cut && cut > 0.f) {
-        const float wfd = kern_wfd(p.kern, p.dim, r, fmaxf(cut, 1e-30f));
+      const KConst kc = tb.kc(KC_TEN, ti, tj);
+      if (rsq < kc.cut2) {
+        const float wfd = kern_wfd(p.kern, r, kc);
         const float coef = m_i * m_j * wfd;
         const float gx = win[SF_CGX * ld + k];
         const float gy = win[SF_CGY * ld + k];
@@ -456,6 +538,17 @@ __device__ __forceinline__ void pair_sum(const float* __restrict__ win,
   }
 }
 
+template <int SWEEP>
+__device__ __forceinline__ void pair_sum(const float* __restrict__ win,
+                                         int ld, int k, const IRow& ir,
+                                         const Tables& tb, const Phys& p,
+                                         float acc[6]) {
+  float dx0, dx1, dx2;
+  const float rsq = pair_rsq(win, ld, k, ir, dx0, dx1, dx2);
+  if (!pair_live(rsq, p.cutmax2)) return;
+  pair_body<SWEEP>(win, ld, k, ir, tb, p, dx0, dx1, dx2, rsq, acc);
+}
+
 // ---- i's sums to its output rows ------------------------------------------
 // rho adds the rhosum self term W(0, cut_rho[t][t]) (x m_i for the mass
 // form); an inactive row writes zeros.
@@ -468,9 +561,8 @@ __device__ __forceinline__ void write_out(float* __restrict__ out, int n,
   if (SWEEP == SW_RHO) {
     float self = 0.f;
     if (active) {
-      const float cut = tb.c2(T_CUTRHO, ir.t, ir.t);
-      const float w0 = cut > 0.f
-          ? kern_w(p.kern, p.dim, 0.f, fmaxf(cut, 1e-30f)) : 0.f;
+      const float w0 = tb.c2(T_CUTRHO, ir.t, ir.t) > 0.f
+          ? kern_w(p.kern, 0.f, tb.kc(KC_RHO, ir.t, ir.t)) : 0.f;
       self = (p.flags & FL_ND) ? w0 : ir.m * w0;
     }
     out[ORHO * n + i] = active ? acc[0] + self : 0.f;

@@ -899,6 +899,152 @@ def plain_sweep(sweep: str, fld: torch.Tensor, tabs: DeviceTables,
     return out
 
 
+def _warp_ids(slots: torch.Tensor, geom: StripGeometry) -> torch.Tensor:
+    """The CUDA sweeps' warp of each i slot: 32 consecutive threads of a
+    block of t_blk * ts rows, numbered over (column, block, warp)."""
+    brows = geom.block_rows
+    wpb = -(-brows // 32)
+    return (slots // brows) * wpb + (slots % brows) // 32
+
+
+def _warp_boxes(fld, geom: StripGeometry, c0: int, c1: int, rc: float):
+    """Per warp of columns [c0, c1): the strip rho / force kernels' filter
+    — the bounding box (lo, hi) of the warp's alive rows, (warps, 3), and
+    rp^2 with rp = rc + 1e-5 * (rc + the box's largest coordinate
+    magnitude), float32, each operation rounded once — whether the warp has
+    an alive row, and the first and last tile of its rows."""
+    dev = fld.device
+    brows, cap = geom.block_rows, geom.col_cap
+    wpb = -(-brows // 32)
+    nw = (c1 - c0) * geom.nblocks * wpb
+    rows = torch.arange(c0 * cap, c1 * cap, device=dev)
+    wid = _warp_ids(rows, geom) - _warp_ids(rows[:1], geom)
+    alive = fld[RTYPE, c0 * cap:c1 * cap] > 0.5
+    big = torch.tensor(float("inf"), device=dev)
+    lo = torch.empty(nw, 3, device=dev)
+    hi = torch.empty(nw, 3, device=dev)
+    for a in range(3):
+        x = fld[RX + a, c0 * cap:c1 * cap]
+        lo[:, a] = torch.full((nw,), float("inf"), device=dev).scatter_reduce(
+            0, wid, torch.where(alive, x, big), "amin")
+        hi[:, a] = torch.full((nw,), -float("inf"), device=dev
+                              ).scatter_reduce(0, wid, torch.where(
+                                  alive, x, -big), "amax")
+    has = torch.zeros(nw, dtype=torch.int32, device=dev).scatter_reduce(
+        0, wid, alive.int(), "amax") > 0
+    rc32 = torch.tensor(rc, dtype=torch.float32, device=dev)
+    mag = torch.maximum(lo.abs(), hi.abs()).amax(1)
+    rp = rc32 + torch.tensor(1e-5, dtype=torch.float32, device=dev) * (
+        rc32 + mag)
+    first = (torch.arange(nw, device=dev) % wpb) * 32
+    last = torch.clamp(first + 31, max=brows - 1)
+    return lo, hi, rp * rp, has, first // geom.ts, last // geom.ts
+
+
+def _box_d2(x, y, z, lo, hi):
+    """Squared distance of (x, y, z) to the box [lo, hi], in the kernels'
+    float32 order: (gx*gx + gy*gy) + gz*gz, gaps max(lo - x, x - hi, 0)."""
+    g = [torch.clamp(torch.maximum(lo[a] - v, v - hi[a]), min=0.0)
+         for a, v in enumerate((x, y, z))]
+    return (g[0] * g[0] + g[1] * g[1]) + g[2] * g[2]
+
+
+def warp_pass_counts(fld: torch.Tensor, win: StripWindows,
+                     delta: torch.Tensor, geom: StripGeometry,
+                     cut2: float) -> dict:
+    """The counts that decide the strip rho / force kernels' design, on any
+    device; used by chip_smoke.py and the tests, never on the main path.
+
+    Over the alive i rows (seam ghosts included: the kernels sum them) and
+    the warps of 32 rows that hold one:
+      candidates      window rows tested per row in the one-pass scan: the
+                      nnbr*W rows of each tile's windows inside their column;
+      box_survivors   (warp, offset, row) where a row of the warp's union
+                      window lies within the cutoff (and a rounding margin)
+                      of the warp's box: the rows phase (a) passes to the
+                      per-lane test (b);
+      live_pairs      (i, j) with 1e-12 < rsq < cut2 (``_window_pairs``);
+      old_passes      pair-body passes of the lockstep scan: (warp, offset,
+                      row) where any of the warp's rows has a live pair;
+      list_passes     pair-body passes with per-lane lists, each lane
+                      running its own: per warp and offset the longest
+                      lane list, summed;
+      queue_passes    pair-body passes of the kernels' warp pair queue:
+                      per warp and offset ceil(live pairs / 32), summed;
+      live_outside_box  live pairs whose j row is not a box survivor of i's
+                      warp (0: the filter is conservative)."""
+    dev = fld.device
+    cap, ts, W, nnbr = geom.col_cap, geom.ts, geom.w, geom.nnbr
+    t_blk, ch = geom.t_blk, geom.ch
+    wpb = -(-geom.block_rows // 32)
+    rc = float(np.sqrt(np.float32(cut2)))
+    cut2 = float(np.float32(cut2))
+    counts = dict(rows=0, warps=0, candidates=0, box_survivors=0,
+                  live_pairs=0, old_passes=0, list_passes=0, queue_passes=0,
+                  live_outside_box=0)
+    # rows of a warp's union window: its tiles' windows, W + (tiles - 1) ts
+    wu = W + ts * ((32 + ts - 2) // ts)
+    cstep = max(1, _PLAIN_CHUNK // (geom.nblocks * wpb * nnbr * wu))
+    cstep = min(cstep, _column_step(geom))
+    alive = fld[RTYPE] > 0.5
+    for c0 in range(0, geom.ncols, cstep):
+        c1 = min(c0 + cstep, geom.ncols)
+        k = c1 - c0
+        lo, hi, r2, has, tA, tB = _warp_boxes(fld, geom, c0, c1, rc)
+        nw = lo.shape[0]
+        w0 = _warp_ids(torch.tensor([c0 * cap], device=dev), geom)
+        # the one-pass scan's candidates: per tile, its window rows inside
+        # the column, times the tile's alive rows
+        _, ok, _ = _window_slots(win, delta, geom, c0, c1)
+        a_tile = alive[c0 * cap:c1 * cap].reshape(k, geom.ntiles, ts).sum(-1)
+        counts["rows"] += int(a_tile.sum())
+        counts["candidates"] += int((ok.sum(-1) * a_tile).sum())
+        counts["warps"] += int(has.sum())
+        # phase (a): each warp's union window against its box
+        wblk = torch.arange(nw, device=dev) // wpb           # (c, block)
+        col, b = wblk // geom.nblocks + c0, wblk % geom.nblocks
+        pm = win.perm[col].long()                            # (nw, nnbr)
+        bb = torch.clamp(b[:, None] + delta[col, :, b].long(), 0,
+                         geom.nblocks - 1)                   # (nw, nnbr)
+        ulo = torch.clamp((bb * t_blk + tA[:, None]) * ts - ch * geom.mlo,
+                          min=0)
+        uhi = torch.clamp((bb * t_blk + tB[:, None]) * ts + ts
+                          + ch * geom.mhi, max=cap)
+        jrow = ulo[..., None] + torch.arange(wu, device=dev)  # (nw,nnbr,wu)
+        inwin = (jrow < uhi[..., None]) & (pm >= 0)[..., None] \
+            & has[:, None, None]
+        jslot = torch.where(inwin, pm.clamp(min=0)[..., None] * cap + jrow, 0)
+        sh = win.shift[col]                                  # (nw, nnbr, 2)
+        xj = [_take(fld[RX + a], jslot) for a in range(3)]
+        xj[0], xj[1] = xj[0] + sh[..., 0:1], xj[1] + sh[..., 1:2]
+        d2 = _box_d2(*xj, [v[:, None, None] for v in lo.T],
+                     [v[:, None, None] for v in hi.T])
+        counts["box_survivors"] += int((inwin & (d2 < r2[:, None, None])
+                                        ).sum())
+        # the live pairs, and which of them phase (a) passes
+        pi, pj, psx, psy, kk = _window_pairs(fld, win, delta, geom, c0, c1,
+                                             cut2)
+        counts["live_pairs"] += pi.numel()
+        wi = _warp_ids(pi, geom) - w0
+        d2 = _box_d2(fld[RX].index_select(0, pj) + psx,
+                     fld[RY].index_select(0, pj) + psy,
+                     fld[RZ].index_select(0, pj), lo[wi].T, hi[wi].T)
+        counts["live_outside_box"] += int((d2 >= r2[wi]).sum())
+        # body passes: lockstep (distinct live rows per warp and offset),
+        # lane lists (the longest per warp and offset) and the queue
+        key = (wi * nnbr + kk) * geom.n_slots + pj
+        counts["old_passes"] += int(torch.unique(key).numel())
+        lane_key, lane_n = torch.unique(pi * nnbr + kk, return_counts=True)
+        wk = _warp_ids(lane_key // nnbr, geom) - w0
+        longest = torch.zeros(nw * nnbr, dtype=lane_n.dtype, device=dev
+                              ).scatter_reduce(0, wk * nnbr + lane_key % nnbr,
+                                               lane_n, "amax")
+        counts["list_passes"] += int(longest.sum())
+        per_wk = torch.bincount(wi * nnbr + kk, minlength=nw * nnbr)
+        counts["queue_passes"] += int(((per_wk + 31) // 32).sum())
+    return counts
+
+
 def _window_checks(fld, win: StripWindows, delta, geom: StripGeometry):
     return (("fld", fld, (F_ROWS, geom.n_slots), torch.float32),
             ("perm", win.perm, (geom.ncols, geom.nnbr), torch.int32),
@@ -922,14 +1068,23 @@ class SweepKernel:
     version (``plain_sweep``); CUDA tensors launch the kernel or raise.
     ``launches`` counts kernel launches only.
 
-    On the card the sweep is bound by instruction throughput, not bytes: each
-    i-row visits nnbr*W candidate rows (~3.5k at the 1M bench geometry) of
-    which ~3% are within the cutoff. The kernel therefore stages each
-    block's union window once per neighbour column in shared memory
-    (coalesced loads, with per-j EOS terms, 1/rho and tension norms
-    computed once at staging), keeps the coefficient tables in shared
-    memory, and rejects a candidate after three shared loads and one
-    compare against the sweep's largest cutoff.
+    On the card the sweeps are bound by instruction throughput over the
+    live pairs, a few percent of the nnbr*W window rows (2.3k-4.6k at the
+    1M bench geometry) each i row's windows hold. Each block stages its
+    union window once per neighbour column in shared memory, with the
+    per-j terms (EOS, 1/rho, tension norms) computed there, and the
+    smoothing kernels' per type-pair constants once per block. Rho and
+    force then filter before they compute (``csrc/strip_sweeps.cu``): a
+    warp tests each window row once against the bounding box of its 32
+    rows (distance below the cutoff), each lane tests the box's survivors
+    exactly, rho adds a live pair at once, and force queues the warp's live
+    pairs and runs them 32 a pass, each lane on any row's pair, each row
+    adding its pairs in the one-pass scan's order (the same bits): the
+    body's passes follow the warp's live pairs / 32 rather than every row
+    any lane needs. ``warp_pass_counts`` gives those counts on a layout.
+    Colour gradient keeps the one-pass scan: its body runs on mixed tiles
+    only. The registers, the shared memory and the measured times are in
+    PERF.md.
     """
 
     def __init__(self, sweep: str):

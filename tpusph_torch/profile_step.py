@@ -29,11 +29,13 @@ from tpusph_torch.bench import build_bench_sim, card_info, run_bench
 
 # the hand-written kernels by their names in tpusph_torch.ops.all_kernels;
 # a sweep kernel's template argument is the Sweep enum (rho 0, cgrad 1,
-# force 2)
+# force 2); the strip rho and force sweeps are strip_filter_kernel, whose
+# second template argument is its blocks per SM
 SWEEPS = ("rho", "cgrad", "force")
 KERNEL_NAMES = tuple(f"{b}_{s}" for b in ("strip", "column", "band")
                      for s in SWEEPS) + ("strip_vapor",)
-_SWEEP = re.compile(r"(strip|column|band)_sweep_kernel<(?:\(int\))?(\d)>")
+_SWEEP = re.compile(
+    r"(strip|column|band)_(?:sweep|filter)_kernel<(?:\(int\))?(\d)[,>]")
 
 
 def _kernel_of(name: str) -> str | None:
