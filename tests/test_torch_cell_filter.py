@@ -1,0 +1,164 @@
+"""The counts that decide the column and band force kernels' design
+(``cell_filter.cell_pass_counts``) on small cell layouts: each layout 3D
+periodic, 3D open and 2D; a lattice so dense (cutoff 4.5 spacings) that
+the force kernel's pair queue flushes many times inside one neighbour
+column; band sub-cells of c slots not a multiple of 32, so that warps hold
+alive rows of two sub-cells; and a column grid with one cell far above
+the others (cap 480: the chunks past the other cells' alive rows hold
+none, and the dense cell's windows are staged in two rounds).
+
+The kernels filter before they compute: a warp tests its staged rows
+against the box of its 32 rows (distance below the cutoff; the block
+stages with their terms only the rows inside its own box, the union of
+its warps'), then each lane tests the box's survivors exactly. Here: every
+live pair of the windows is a survivor of both boxes (the filter is
+conservative, as the kernel needs: a pair it drops is a pair missing from
+a sum; with the filter radius cut by 3% the first case fails); the pair
+queue's body passes never exceed the lockstep scan's, nor those the box
+survivors; and the windows hold every pair within the cutoff: the live
+pairs equal a brute-force all-pairs count in numpy (minimum image) on the
+same positions. The layouts themselves are held exactly against the JAX
+package in tests/test_torch_cellgrid.py and
+tests/test_torch_band_layout.py."""
+
+import numpy as np
+import pytest
+import torch
+
+from tpusph_torch import grid
+from tpusph_torch.ops import band_pair, cell_filter, pallas_pair
+from tpusph_torch.ops.rows import RTYPE
+from tpusph_torch.params import PairTables
+from tpusph_torch.state import Box, state_from_arrays
+
+from test_torch_strip_filter import brute_force_pairs
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread (see tests/test_torch_slice.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def lattice(dim, shape, periodic, hfac, seed, dx=0.5, dense_cell=0):
+    """A jittered two-type lattice of ``shape`` sites, cutoffs ``hfac``
+    spacings, and ``dense_cell`` more particles packed into a cube of side
+    1.2 inside one cell: (state, box, cut2, cutoff)."""
+    rng = np.random.default_rng(seed)
+    ax = [np.arange(m) * dx for m in shape]
+    pts = np.stack(np.meshgrid(*ax, indexing="ij"), -1).reshape(-1, dim)
+    if dim == 2:
+        pts = np.concatenate([pts, np.zeros((len(pts), 1))], axis=1)
+    pts = pts + rng.uniform(-0.1 * dx, 0.1 * dx, pts.shape)
+    L = [m * dx for m in shape] + [1.0]
+    if dense_cell:
+        # inside the cell [1.5, 3)^3 of the 12^3 lattice's grid
+        pts = np.concatenate([pts, 2.25 + rng.uniform(-0.6, 0.6,
+                                                      (dense_cell, 3))])
+    if dim == 2:
+        pts[:, 2] = 0.0
+    n = len(pts)
+    st = state_from_arrays(pts.astype(np.float32), rng.integers(1, 3, n),
+                           np.full(n, 0.1),
+                           capacity=((n + 127) // 128) * 128, device="cpu")
+    box = Box.create([0, 0, 0], L[:3], periodic, device="cpu")
+    tables = PairTables.zeros(2)
+    h = hfac * dx
+    for i, j in ((1, 2), (1, 1), (2, 2)):
+        tables.set_taitwater(i, j, rho0=1.0, c0=6.0, viscosity=0.4, h=h)
+        tables.set_rhosum(i, j, h=h)
+    return st, box, tables.stacked("cpu").cutmax2["force"], tables.max_cut()
+
+
+def column_layout(st, box, cutoff, dim, cap=None):
+    """(fld, layout, alive positions) of the column kernel's cell grid."""
+    geom = grid.make_geometry(box, cutoff, dim, skin=0.2, cap=cap)
+    backend = pallas_pair.PallasBackend(geom, box, ntypes=2, device="cpu")
+    st, aux = backend.init_aux(st, box)
+    assert int(aux.overflow.sum()) == 0
+    fld, _, _ = pallas_pair.pack_dense(st, aux, backend.colgrid)
+    return fld, backend.colgrid, st.x[st.alive].numpy()
+
+
+def band_layout(st, box, cutoff, dim):
+    """(fld, layout, alive positions) of the band's sub-cell layout."""
+    geom = band_pair.choose_band_geometry(box, cutoff, dim, 0.2,
+                                          x=st.x[st.alive].numpy())
+    assert geom is not None
+    backend = band_pair.BandBackend(geom, ntypes=2)
+    st, aux = backend.init_aux(st, box)
+    assert int(aux.overflow.sum()) == 0
+    return band_pair.pack_fields(st), geom, st.x[st.alive].numpy()
+
+
+def two_subcell_warps(fld, geom):
+    """Warps of the band kernel holding alive rows of two sub-cells."""
+    slot = torch.arange(geom.n_slots)
+    alive = fld[RTYPE] > 0.5
+    warp = (slot // geom.gc) * (-(-geom.gc // 32)) + (slot % geom.gc) // 32
+    sub = slot // geom.c
+    first = torch.full((int(warp.max()) + 1,), geom.n_slots).scatter_reduce(
+        0, warp[alive], sub[alive], "amin")
+    last = torch.full_like(first, -1).scatter_reduce(
+        0, warp[alive], sub[alive], "amax")
+    return int((last > first).sum())
+
+
+@pytest.mark.parametrize("kind,dim,shape,periodic,hfac,dense_cell", [
+    ("column", 3, (12, 12, 12), (True, True, True), 2.2, 0),
+    ("column", 3, (12, 12, 12), (False, False, False), 2.2, 0),
+    ("column", 2, (40, 40), (True, True, False), 2.2, 0),
+    ("column", 3, (12, 12, 12), (True, True, True), 2.2, 480),
+    ("band", 3, (12, 12, 12), (True, True, True), 2.2, 0),
+    ("band", 3, (12, 12, 12), (False, False, False), 2.2, 0),
+    ("band", 2, (40, 40), (True, True, False), 2.2, 0),
+    ("band", 3, (20, 20, 12), (True, True, False), 4.5, 0),
+])
+def test_filter_is_conservative_and_windows_hold_every_pair(
+        kind, dim, shape, periodic, hfac, dense_cell):
+    st, box, cut2, cutoff = lattice(dim, shape, periodic, hfac,
+                                    seed=dim + len(shape),
+                                    dense_cell=dense_cell)
+    if kind == "column":
+        # one cell of 507 rows: cap 510, four chunks of 128 slots a cell
+        fld, lay, x = column_layout(st, box, cutoff, dim,
+                                    cap=510 if dense_cell else None)
+    else:
+        fld, lay, x = band_layout(st, box, cutoff, dim)
+    c = cell_filter.cell_pass_counts(fld, lay, cut2)
+    assert c["live_pairs"] > 0
+    assert c["live_outside_box"] == 0, c
+    assert c["queue_passes"] <= c["old_passes"] <= c["box_survivors"], c
+    # a warp's survivors lie inside its block's box
+    wpc = cell_filter.block_threads(cell_filter.as_band(lay)) // 32
+    assert c["box_survivors"] <= wpc * c["staged_with_terms"], c
+    assert c["staged_with_terms"] <= c["staged_rows"], c
+    if hfac > 4:
+        # the pair queue runs many times inside one neighbour column
+        assert c["most_window_pairs"] > 4 * 128, c
+    if dense_cell:
+        # chunks past every alive row, and windows staged in two rounds
+        assert c["blocks"] == 4 * lay.ncols * lay.ncz, c
+        assert c["blocks_alive"] == lay.ncols * lay.ncz + 3, c
+        assert c["multi_round_windows"] > 0, c
+    # the windows' pairs are exactly the pairs within the cutoff
+    assert c["live_pairs"] == brute_force_pairs(x, box, cut2)
+
+
+def test_band_cases_cover_c_not_a_multiple_of_32():
+    """Two band cases above have sub-cells of c slots, c not a multiple of
+    32, and in one of them warps hold alive rows of two sub-cells."""
+    odd, two = [], []
+    for dim, shape, periodic, hfac in ((2, (40, 40), (True, True, False),
+                                        2.2),
+                                       (3, (20, 20, 12), (True, True, False),
+                                        4.5)):
+        st, box, _, cutoff = lattice(dim, shape, periodic, hfac,
+                                     seed=dim + len(shape))
+        fld, lay, _ = band_layout(st, box, cutoff, dim)
+        odd.append(lay.c % 32 != 0)
+        two.append(two_subcell_warps(fld, lay))
+    assert all(odd) and max(two) > 0, (odd, two)

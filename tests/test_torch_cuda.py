@@ -12,8 +12,14 @@ lattices (rsq ties) and jittered ones, with seam-ghost rows where the
 column axis is periodic. The compacted force sweep keeps exactly the plain
 version's survivors (its overflow count equal on every slot, also with P
 below the candidate union) and matches the strip force kernel where
-nothing overflows. A CUDA tensor never takes a plain version: every
-wrapper call moves its launch counter.
+nothing overflows. The column and band force kernels (the queued sweep
+of tpusph_torch/csrc/cell_force.cuh) equal their one-pass check kernels
+bit for bit on every alive row, on layouts that reach their control flow:
+a cap not a multiple of 32, one dense cell among sparse ones (chunks that
+exit, windows staged in two rounds), 2D, a periodic column of one cell,
+open edges, band c 80 and c 128, warps of one alive row. A CUDA tensor
+never takes a plain version: every wrapper call moves its launch
+counter.
 
 Needs an NVIDIA GPU and nvcc (marker ``cuda``); elsewhere every test skips.
 tests/conftest.py imports jax, which this file does not need, so on a
@@ -31,7 +37,8 @@ import pytest
 import torch
 
 from tpusph_torch import grid, kernels
-from tpusph_torch.ops import band_pair, mxu_compact, pallas_pair, strip_pair
+from tpusph_torch.ops import (band_pair, cell_filter, mxu_compact,
+                              pallas_pair, strip_pair)
 from tpusph_torch.ops.band_pair import pack_fields
 from tpusph_torch.ops.rows import (
     OCGX, OCGY, ODE, ODRHO, OFX, OFY, OFZ, ORHO, RCGX, RCGZ, RM, RRHO, RSLOT,
@@ -74,12 +81,14 @@ def device():
 
 
 def lattice(dim, nside, periodic, seed, device, dx=0.5, jitter=True,
-            uniform=False, hfac=2.2, shape=None):
+            uniform=False, hfac=2.2, shape=None, dense_cell=0):
     """A jittered (or exact) two-type lattice with random v, rho, e (the
     JAX tests' lattice_system, built here with numpy alone); ``uniform``
     makes every pair table uniform over the two types with one cutoff.
     Cutoffs are ``hfac`` spacings; ``shape`` (sites per axis) and a tuple
-    ``periodic`` (per axis) override the cube of ``nside``."""
+    ``periodic`` (per axis) override the cube of ``nside``; ``dense_cell``
+    more particles are packed into a cube of side 1.2 about (2.25, 2.25,
+    2.25), inside one cell of the 12^3 lattice's grid."""
     rng = np.random.default_rng(seed)
     shape = shape or (nside,) * dim
     ax = [np.arange(m) * dx for m in shape]
@@ -87,6 +96,9 @@ def lattice(dim, nside, periodic, seed, device, dx=0.5, jitter=True,
     if dim == 2:
         pts = np.concatenate([pts, np.zeros((len(pts), 1))], axis=1)
     pts = pts + rng.uniform(-0.1 * dx, 0.1 * dx, pts.shape) * jitter
+    if dense_cell:
+        pts = np.concatenate([pts, 2.25 + rng.uniform(-0.6, 0.6,
+                                                      (dense_cell, 3))])
     if dim == 2:
         pts[:, 2] = 0.0
     n = len(pts)
@@ -448,6 +460,175 @@ def test_band_force_stage_on_card_matches_cpu(device):
         b = getattr(outs["cuda"], field).cpu()
         err = float((a - b).abs().max())
         assert err <= rtol * float(a.abs().max()), (field, err)
+
+
+def feed_force(kernels, fld, tabs, layout, spec):
+    """Patch rho and the colour gradient into ``fld`` from the layout's rho
+    and cgrad kernels, as the force stage does."""
+    alive = fld[RTYPE] > 0.5
+    if spec.rhosum_every > 0:
+        total = kernels["rho"](fld, tabs, layout, spec)[ORHO]
+        if spec.rhosum_nd:
+            total = total * fld[RM]
+        fld[RRHO] = torch.where(alive, total, fld[RRHO])
+    if spec.surface_tension:
+        out = kernels["cgrad"](fld, tabs, layout, spec)
+        fld[RCGX:RCGZ + 1] = torch.where(alive, out[[OCGX, OCGY, ODE]], 0.0)
+
+
+def force_matches_plain_and_scan(kind, fld, tabs, layout, spec):
+    """The layout's queued force kernel (``kind`` "column" or "band")
+    against its plain version, within the bar, and against the one-pass
+    check kernel, bit for bit on every alive row; each launch counted.
+    Returns the counts of its phases (``cell_filter.cell_pass_counts``)."""
+    mod = pallas_pair if kind == "column" else band_pair
+    plain = (pallas_pair.plain_column_sweep if kind == "column"
+             else band_pair.plain_band_sweep)
+    kern = mod.KERNELS["force"]
+    scan = (pallas_pair.column_force_scan if kind == "column"
+            else band_pair.band_force_scan)
+    feed_force(mod.KERNELS, fld, tabs, layout, spec)
+    alive = fld[RTYPE] > 0.5
+    n0, s0 = kern.launches, scan.launches
+    out_k = kern(fld, tabs, layout, spec)
+    out_s = scan(fld, tabs, layout, spec)
+    torch.cuda.synchronize()
+    assert (kern.launches, scan.launches) == (n0 + 1, s0 + 1)
+    check_rows("force", out_k, plain("force", fld, tabs, layout, spec),
+               alive)
+    rows = list(ROWS["force"])
+    differ = int((out_k[rows][:, alive] != out_s[rows][:, alive]).any(0)
+                 .sum())
+    assert differ == 0, differ
+    if bool((~alive).any()):
+        assert float(out_k[:, ~alive].abs().max()) == 0.0
+    counts = cell_filter.cell_pass_counts(fld, layout, tabs.cutmax2["force"])
+    assert counts["live_outside_box"] == 0, counts
+    return counts
+
+
+def keep_one_alive(fld, first_slot, fill):
+    """In every third block of 32 slots from ``first_slot`` (a slot index
+    tensor of each block's first slot) that holds an alive row, kill all
+    alive rows but the last (each dead slot's rows filled by ``fill(r)``):
+    warps with one alive row, above dead ranks within the live reach.
+    Returns the number of such warps."""
+    alive = fld[RTYPE] > 0.5
+    slots = first_slot[::3, None] + torch.arange(32, device=fld.device)
+    a = alive[slots]
+    last = torch.where(a, torch.arange(32, device=fld.device), -1).amax(1)
+    kill = a & (torch.arange(32, device=fld.device) != last[:, None])
+    dead = slots[kill]
+    for r in range(fld.shape[0]):
+        fld[r, dead] = fill(r)
+    return int((last >= 0).sum())
+
+
+def column_case(case, device):
+    """The column layout of one card-test case: (fld, colgrid)."""
+    dim, cap, shape, periodic, dense = 3, None, None, True, 0
+    if case == "cap70":
+        cap = 70                        # not a multiple of 32
+    elif case == "dense_cell":
+        cap, dense = 510, 480           # one cell of 507 rows
+    elif case == "2d":
+        dim = 2
+    elif case == "ncz1":
+        shape = (12, 12, 4)             # periodic z of 2.0: one cell
+    elif case == "open":
+        periodic = False
+    st, box, tables = lattice(dim, 12 if dim == 3 else 40, periodic,
+                              dim + 51, device, shape=shape,
+                              dense_cell=dense)
+    geom = grid.make_geometry(box, tables.max_cut(), dim, skin=0.2, cap=cap)
+    backend = pallas_pair.PallasBackend(geom, box, ntypes=2, device=device)
+    st, aux = backend.init_aux(st, box)
+    assert int(aux.overflow.sum()) == 0
+    cg = backend.colgrid
+    if case == "ncz1":
+        assert cg.ncz == 1
+    fld, _, _ = pallas_pair.pack_dense(st, aux, cg)
+    return fld, cg, tables
+
+
+@pytest.mark.parametrize("case,name", [
+    ("cap70", "bench"), ("dense_cell", "bench"), ("dense_cell",
+                                                   "morris_virial"),
+    ("2d", "bench"), ("2d", "heatpc_wendland_st"), ("ncz1", "bench"),
+    ("open", "morris_virial"), ("one_alive", "bench"),
+])
+def test_column_force_matches_one_pass_scan(device, case, name):
+    """The column force kernel (the warp box filter and pair queue, blocks
+    of up to 128 ranks) bit for bit equal to the one-pass check kernel on
+    every alive row: a cap not a multiple of 32; one cell of 507 rows
+    beside cells of ~27 (chunks that exit, windows staged in two rounds);
+    2D; a periodic column of one cell (staged three times under three
+    shifts); open edges; warps of one alive row above dead ranks."""
+    fld, cg, tables = column_case(case, device)
+    if case == "one_alive":
+        cells = torch.arange(cg.ncols * cg.ncz, device=device) * cg.cap
+        assert keep_one_alive(fld, cells, lambda r: 0.0) >= 4
+    dim = cg.dim
+    counts = force_matches_plain_and_scan(
+        "column", fld, tables.stacked(device), cg,
+        PhysicsSpec(dim=dim, **SPECS[name]))
+    if case == "dense_cell":
+        assert counts["blocks_alive"] < counts["blocks"] // 3, counts
+        assert counts["multi_round_windows"] > 0, counts
+
+
+def band_case(case, device):
+    """The band layout of one card-test case: (fld, geometry, tables). The
+    geometry is the chooser's split of a 16^3 lattice with cutoff 3
+    spacings (cells of 4 x 4 sites) into sub-cells one cell tall (G 2, k
+    1, ~64 particles a sub-cell) or half a cell (G 4, k 2, ~32), with the
+    slots per sub-cell c set as the 1M bench's are (80 and 128)."""
+    periodic = case != "open_c128"
+    st, box, tables = lattice(3, 16, periodic, 61, device, hfac=3.0)
+    c, G, p = {"c80": (80, 2, 1), "c128": (128, 4, 2),
+               "open_c128": (128, 4, 2), "one_alive": (80, 2, 1)}[case]
+    side = tables.max_cut() + 0.2
+    L = 8.0
+    nsub = int(L * p // side)
+    nsub -= nsub % G if periodic else 0
+    k = max(int(np.ceil(side / (L / nsub) - 1e-9)), 1)
+    geom = band_pair.BandGeometry(
+        ncx=4, ncy=4, nsub=nsub, G=G, c=c, k=k, dim=3, periodic=box.periodic,
+        lengths=(L, L, L), origin=(0.0, 0.0, 0.0), cell_xy=(2.0, 2.0),
+        s_sub=L / nsub, skin=0.2)
+    assert geom.gc <= band_pair.MAX_GC and G + 2 * k <= geom.nsub_pad
+    backend = band_pair.BandBackend(geom, ntypes=2)
+    st, aux = backend.init_aux(st, box)
+    assert int(aux.overflow.sum()) == 0
+    return pack_fields(st), geom, tables
+
+
+@pytest.mark.parametrize("case,name", [
+    ("c80", "bench"), ("c80", "heatpc_wendland_st"), ("c128", "bench"),
+    ("c128", "morris_virial"), ("open_c128", "bench"),
+    ("one_alive", "morris_virial"),
+])
+def test_band_force_matches_one_pass_scan(device, case, name):
+    """The band force kernel bit for bit equal to the one-pass check kernel
+    on every alive row: c 80 (chunks of 128 slots across two sub-cells,
+    warps with alive rows of both), c 128 (a chunk a sub-cell, its upper
+    warps dead), open edges, warps of one alive row above dead ranks."""
+    fld, geom, tables = band_case(case, device)
+    if case == "c80":
+        slot = torch.arange(geom.n_slots, device=device)
+        alive = fld[RTYPE] > 0.5
+        wid = slot // 32
+        sub = slot // geom.c
+        lo = torch.full((geom.n_slots // 32,), geom.n_slots, device=device
+                        ).scatter_reduce(0, wid[alive], sub[alive], "amin")
+        hi = torch.full_like(lo, -1).scatter_reduce(0, wid[alive],
+                                                    sub[alive], "amax")
+        assert int((hi > lo).sum()) > 0, "no warp across two sub-cells"
+    if case == "one_alive":
+        subs = torch.arange(geom.total_cells, device=device) * geom.c
+        assert keep_one_alive(fld, subs, band_pair.dead_lane_fill) >= 4
+    force_matches_plain_and_scan("band", fld, tables.stacked(device), geom,
+                                 PhysicsSpec(dim=3, **SPECS[name]))
 
 
 def compact_inputs(name, dim, periodic, seed, device):

@@ -18,22 +18,30 @@
 // meanings; the wrapper zeroes it, and a group without an alive slot writes
 // nothing (the reference's pl.when at band_pair.py:533).
 //
-// Work split. One block per (column, group) on a (ncols, ngroups) grid, one
-// thread per i slot of the group (blockDim = G*c rounded up to a warp). For
-// each of the 9 (3D) / 3 (2D) neighbour columns the block stages the group's
-// window in shared memory: the rows [(g*G - k) * c, (g*G + G + k) * c) of that
-// column, i.e. the group's G sub-cells and k margin sub-cells on each side,
-// with the image shift added to the positions: the plane shift of a
-// periodic wrap across x (and y in 3D), and on a periodic column axis the
-// wrap modulo nsub_pad sub-cells with -L on the column coordinate for group
-// 0's low margin and +L for the last group's high margin (the reference's
-// band_row). On a non-periodic column axis the outside margins are staged as
-// no candidate, and a neighbour column past a non-periodic plane edge is
-// skipped (the reference reads an all-dead sentinel column there). The
-// reference pre-gathers these windows into a band array because Mosaic
-// cannot slice lanes dynamically; here each block reads them straight from
-// fld. Every thread then scans the staged rows for its own slot, each staged
-// sub-cell only as far as its last live rank.
+// Work split. Force: cell_force.cuh's queued sweep (a block per group and
+// chunk of up to 128 slots; per neighbour column the group's G + 2k staged
+// sub-cells to their live reach, each warp's box filter, exact tests and
+// pair queue; a warp whose lanes lie in two sub-cells shares their group's
+// window, so it needs no union). Rho and colour gradient: the one-pass scan
+// below, band_sweep_kernel, one block per (column, group) on a (ncols,
+// ngroups) grid, one thread per i slot of the group (blockDim = G*c
+// rounded up to a warp). For each of the 9 (3D) / 3 (2D) neighbour columns
+// the block stages the group's window in shared memory: the rows
+// [(g*G - k) * c, (g*G + G + k) * c) of that column, i.e. the group's G
+// sub-cells and k margin sub-cells on each side, with the image shift
+// added to the positions: the plane shift of a periodic wrap across x (and
+// y in 3D), and on a periodic column axis the wrap modulo nsub_pad
+// sub-cells with -L on the column coordinate for group 0's low margin and
+// +L for the last group's high margin (the reference's band_row). On a
+// non-periodic column axis the outside margins are staged as no candidate,
+// and a neighbour column past a non-periodic plane edge is skipped (the
+// reference reads an all-dead sentinel column there). The reference
+// pre-gathers these windows into a band array because Mosaic cannot slice
+// lanes dynamically; here each block reads them straight from fld. Every
+// thread then scans the staged rows for its own slot, each staged sub-cell
+// only as far as its last live rank. Its force instantiation is kept as
+// band_force_scan_launch, the check the queued force is held to bit for
+// bit (chip_smoke.py, the card tests); no path of the port launches it.
 //
 // Pair mask: type_i > 0.5, type_j > 0.5, rsq > 1e-12; rows that are no
 // candidate are staged at a far position, so one rsq compare rejects them.
@@ -42,18 +50,23 @@
 // its kernel always runs the capillary terms), as in column_sweeps.cu. The
 // rho sweep folds the self term in (write_out).
 //
-// What bounds it: instruction throughput. Each i row scans 9*(G+2k)*c
-// candidates (5,040 on the 1M bench's lattice, G 5, k 1, c 80; 6,912 after
-// its warmup re-choice, G 4, c 128) of which a few percent lie within the
-// cutoff. A candidate is rejected after three shared loads and one compare
-// against the sweep's largest squared cutoff, before any table lookup;
-// per-j terms are computed once while staging; the tables sit in shared
-// memory; the scan of a staged sub-cell stops after its last live rank
-// (sub-cells hold ~64-67 particles on the 1M bench). Built without
-// fast-math: IEEE divides and square roots.
+// What bounds it: instruction throughput. Each i row has 9*(G+2k)
+// sub-cells of candidates (~3,500 live-reach rows on the 1M bench's
+// lattice at G 4, c 128, k 1, ~65 particles a sub-cell), of which ~110 lie
+// within the cutoff. The one-pass scan tests every candidate in every lane
+// and runs the pair body in lockstep wherever any lane of the warp has a
+// live pair, in blocks as wide as the group (at c 128 about half of a
+// sub-cell's warps hold no alive row). It rejects a candidate after three
+// shared loads and one compare against the sweep's largest squared cutoff,
+// before any table lookup; per-j terms are computed once while staging;
+// the tables sit in shared memory. The queued force runs the body 32 live
+// pairs a pass instead, in blocks cut to the live ranks, and a warp's box
+// drops the staged sub-cells beyond its own +-k (cell_force.cuh). Built
+// without fast-math: IEEE divides and square roots.
 
 #include <cuda_runtime.h>
 
+#include "cell_force.cuh"
 #include "sph_pair.cuh"
 
 namespace {
@@ -61,10 +74,9 @@ namespace {
 using namespace sph;
 
 constexpr int kMaxThreads = 512;  // the chooser's largest group, G*c <= 512
-constexpr int kMaxStaged = 96;    // staged sub-cells G + 2k (k <= G <= 32)
 // Registers: at most 64 a thread (two blocks of 512 threads per SM), as in
-// column_sweeps.cu, whose force sweep took 99 registers left free and ran
-// at half the resident warps.
+// column_sweeps.cu, whose one-pass force sweep took 99 registers left free
+// and ran at half the resident warps.
 constexpr int kMinBlocks = 2;
 
 struct BandGeo {
@@ -81,7 +93,7 @@ band_sweep_kernel(const float* __restrict__ fld,
                   float* __restrict__ out) {
   extern __shared__ float smem[];
   // per staged sub-cell, one past its last live rank
-  __shared__ int reach[kMaxStaged];
+  __shared__ int reach[kMaxStagedCells];
   const Tables tb = load_tables(smem, tab2g, tab1g, p);
   const int nsw = g.G + 2 * g.k;
   const int ld = nsw * g.c;
@@ -179,7 +191,7 @@ int launch(const float* fld, const float* tab2, const float* tab1,
   const long long ncols = dim == 3 ? (long long)ncx * ncy : ncx;
   const int ngroups = G > 0 ? nsub_pad / G : 0;
   if (G < 1 || c < 1 || k < 0 || ngroups < 1 || ngroups * G != nsub_pad ||
-      G + 2 * k > kMaxStaged || threads > kMaxThreads || ncols < 1 ||
+      G + 2 * k > kMaxStagedCells || threads > kMaxThreads || ncols < 1 ||
       ngroups > 65535 || T1 < 1 || ncols * nsub_pad * c != n_slots ||
       (dim != 2 && dim != 3) || (dim == 2 && ncy != 1) ||
       (per_col && G + 2 * k > nsub_pad)) {
@@ -216,7 +228,20 @@ extern "C" int band_cgrad_launch(BAND_ARGS) {
   return launch<SW_CGRAD>(BAND_PASS);
 }
 
+// the queued force sweep (cell_force.cuh)
 extern "C" int band_force_launch(BAND_ARGS) {
+  // the one-pass launcher's limits (launch_cell_force checks the rest)
+  if (G * c > kMaxThreads || (per_col && G + 2 * k > nsub_pad)) {
+    return (int)cudaErrorInvalidConfiguration;
+  }
+  const CellGeo g{n_slots, ncx, ncy, nsub_pad, G, c, k, dim, per_x, per_y,
+                  per_col, lx, ly, lcol};
+  return launch_cell_force<L_BAND>(g, Phys{dim, kern, flags, T1, cutmax2},
+                                   fld, tab2, tab1, out, stream);
+}
+
+// the one-pass force sweep: the check the queued one is held to
+extern "C" int band_force_scan_launch(BAND_ARGS) {
   return launch<SW_FORCE>(BAND_PASS);
 }
 

@@ -1,0 +1,271 @@
+// The force sweep over the cell layouts, filter then compute: one kernel
+// for the column kernel's cell grid (column_sweeps.cu) and the band's
+// slot-resident sub-cells (band_sweeps.cu).
+//
+// The two layouts are one shape. fld is the (16, n_slots) float32 field
+// matrix with slot = (column * nsub_pad + sub) * c + rank: columns tile the
+// plane (xy in 3D, x in 2D), each is cut into nsub_pad sub-cells of c slots
+// along the column axis (z in 3D, y in 2D), and a group of G sub-cells is
+// one i group whose window in each of the 9 (3D) / 3 (2D) neighbour columns
+// is its G sub-cells and k margin sub-cells on each side. The column grid
+// is that layout with G = 1, k = 1, c = cap and nsub_pad = ncz. One kernel
+// serves both because the two differences between them do not reach it:
+// empty column slots (zero, type 0) and dead band slots (far sentinel,
+// type 0) are both staged as no candidate by their type, and a periodic
+// column axis shorter than the window (the column grid's ncz < 3) stages
+// one sub-cell more than once under different shifts, as the one-pass scan
+// does (the band launcher refuses it, as before). The layout tag only
+// names the kernel in a profile.
+//
+// Work split. One block per (column, group, chunk of up to kCellThreads
+// slots of the group), one thread per i slot: a group's alive rows sit at
+// the low ranks of its sub-cells, so the chunks past them hold no alive row
+// and exit at their first barrier, and the block's warps are those of the
+// live ranks, not of the whole cap (the one-pass scan's blocks span the
+// group: at cap 280 and ~64 rows a cell, 7 of its 9 warps hold no alive
+// row). For each neighbour column the block finds the live reach of each
+// staged sub-cell (one past its last alive rank), and stages the staged
+// sub-cells' rows below their reach, in (sub-cell, rank) order, at most
+// `ld` rows a round (kStageRows: the column's windows of ~200 live rows
+// take one round at 1M, the band's of ~390 two), with the image shift
+// added to the positions and the per-j terms computed once. A row outside the block's box (the union of its
+// warps' WarpBox, which keeps every row any warp box keeps) is staged as no
+// candidate without its terms. Each warp then runs warp_filter.cuh's
+// filter_window over the round: its box test, each lane's exact test of
+// the survivors, the warp pair queue, flushed before the next round is
+// staged. A row sums its pairs in (neighbour column, sub-cell, rank)
+// order, the order of the one-pass scan (column_sweeps.cu /
+// band_sweeps.cu's *_sweep_kernel, kept as the check kernel
+// *_force_scan_launch), with the same pair arithmetic: the sums are the
+// one-pass scan's, bit for bit.
+//
+// What bounds it: instruction throughput and latency of the live pairs'
+// body, run 32 pairs a pass; then the box filter's exact tests (a warp of
+// rows spread over a whole cell keeps 410-620 rows at 1M, about a strip
+// warp's) and the staging, which each chunk repeats for its group's
+// window (read from L2). The body is latency-bound: resident warps
+// decide its speed, hence the small staging budget and the five-block
+// build (88 registers, no spill) or the six-block one (80, a few bytes
+// spilled), picked by the occupancy API (warp_filter.cuh, pick_build).
+// Built without fast-math: IEEE divides and square roots.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "sph_pair.cuh"
+#include "warp_filter.cuh"
+
+namespace sph {
+
+constexpr int kCellThreads = 128;    // i slots per block (a chunk)
+// Staged rows per round, at most: 256 keep a block's shared memory near
+// 36 KB, so six blocks of the six-block build (80 registers) fit an SM;
+// 512 allowed four (120 registers) and 384 five (88), each slower on
+// every 1M bench layout (PERF.md, Findings). A band window of ~390 live
+// rows then takes two rounds.
+constexpr int kStageRows = 256;
+constexpr int kMaxStagedCells = 96;  // staged sub-cells G + 2k
+enum { L_COLUMN = 0, L_BAND = 1 };
+
+struct CellGeo {
+  int n_slots, ncx, ncy, nsub_pad, G, c, k, dim;
+  int per_x, per_y, per_col;  // periodic plane axes, periodic column axis
+  float lx, ly, lcol;         // box lengths: plane x, plane y, column axis
+};
+
+// Staged sub-cell `sub` (in [-k, nsub_pad + k)) of a neighbour column: its
+// sub-cell in the layout and the column-axis shift, or false past a
+// non-periodic column end. k <= nsub_pad: one wrap reaches the other end.
+__device__ __forceinline__ bool wrap_sub(const CellGeo& g, int& sub,
+                                         float& sz) {
+  sz = 0.f;
+  if (sub >= 0 && sub < g.nsub_pad) return true;
+  if (!g.per_col) return false;
+  sz = sub < 0 ? -g.lcol : g.lcol;
+  sub = sub < 0 ? sub + g.nsub_pad : sub - g.nsub_pad;
+  return true;
+}
+
+template <int LAYOUT, int MIN_BLOCKS>
+__global__ void __launch_bounds__(kCellThreads, MIN_BLOCKS)
+cell_force_kernel(const float* __restrict__ fld,
+                  const float* __restrict__ tab2g,
+                  const float* __restrict__ tab1g, CellGeo g, Phys p,
+                  int ld, float* __restrict__ out) {
+  extern __shared__ float smem[];
+  // per staged sub-cell its live reach, and their running sum (a round's
+  // rows are the (sub-cell, rank) sequence's [base, base + ld))
+  __shared__ int reach[kMaxStagedCells];
+  __shared__ int off[kMaxStagedCells + 1];
+  __shared__ float wbox[kCellThreads / 32][6];
+  __shared__ WarpBox bbox;
+  const Tables tb = load_tables(smem, tab2g, tab1g, p);
+  float* win = smem + table_floats(p.T1);  // [SF_NF][ld]
+  float* sir = win + SF_NF * ld;           // queue_floats(blockDim.x)
+
+  const int n = g.n_slots;
+  const int col = blockIdx.x;
+  const int grp = blockIdx.y;
+  const int gc = g.G * g.c;
+  const int col_slots = g.nsub_pad * g.c;
+  const int s = blockIdx.z * blockDim.x + threadIdx.x;  // slot in the group
+  const int i = col * col_slots + grp * gc + s;
+  const bool alive = s < gc && fld[RTYPE * n + i] > 0.5f;
+  // a chunk without an alive slot writes nothing (also the barrier that
+  // publishes the tables)
+  if (!__syncthreads_or(alive)) return;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned wmask = 0xffffffffu;
+  IRow ir{};
+  if (alive) {
+    ir = load_i<SW_FORCE>(fld, n, i, tb, p, (p.flags & FL_ST) != 0);
+  }
+  put_irow(sir, blockDim.x, threadIdx.x, ir);
+  const WarpQueue wq = warp_queue(sir, blockDim.x, warp, lane);
+  const bool warp_alive = __any_sync(wmask, alive);
+  const float rc = sqrtf(p.cutmax2);
+  const WarpBox bx = warp_box(ir, alive, wmask, rc);
+  if (lane == 0) {
+    for (int a = 0; a < 3; ++a) {
+      wbox[warp][a] = bx.lo[a];
+      wbox[warp][3 + a] = bx.hi[a];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    // the block's box: the union of its warps' (a dead warp's is empty);
+    // the first neighbour column's barrier publishes it
+    for (int a = 0; a < 3; ++a) {
+      bbox.lo[a] = kBoxFar;
+      bbox.hi[a] = -kBoxFar;
+      for (int w = 0; w < (int)blockDim.x / 32; ++w) {
+        bbox.lo[a] = fminf(bbox.lo[a], wbox[w][a]);
+        bbox.hi[a] = fmaxf(bbox.hi[a], wbox[w][3 + a]);
+      }
+    }
+    bbox.set_radius(rc);
+  }
+  float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+
+  const bool dim3 = g.dim == 3;
+  const int cx = dim3 ? col / g.ncy : col;
+  const int cy = dim3 ? col - cx * g.ncy : 0;
+  const int oy_reach = dim3 ? 1 : 0;
+  const int nsw = g.G + 2 * g.k;
+  const int sub0 = grp * g.G - g.k;  // first staged sub-cell
+  for (int ox = -1; ox <= 1; ++ox) {
+    for (int oy = -oy_reach; oy <= oy_reach; ++oy) {
+      // the neighbour column and its plane shift (uniform over the block)
+      int nx = cx + ox, ny = cy + oy;
+      float sx = 0.f, sy = 0.f;
+      if (nx < 0 || nx >= g.ncx) {
+        if (!g.per_x) continue;
+        sx = nx < 0 ? -g.lx : g.lx;
+        nx = nx < 0 ? nx + g.ncx : nx - g.ncx;
+      }
+      if (dim3 && (ny < 0 || ny >= g.ncy)) {
+        if (!g.per_y) continue;
+        sy = ny < 0 ? -g.ly : g.ly;
+        ny = ny < 0 ? ny + g.ncy : ny - g.ncy;
+      }
+      const int jbase = (dim3 ? nx * g.ncy + ny : nx) * col_slots;
+
+      __syncthreads();  // the previous column's readers are done
+      for (int d = threadIdx.x; d < nsw; d += blockDim.x) reach[d] = 0;
+      __syncthreads();
+      // live reach: per warp and staged sub-cell, its highest alive lane
+      for (int w0 = 0; w0 < nsw * g.c; w0 += blockDim.x) {
+        const int w = w0 + threadIdx.x;
+        const int d = w / g.c;
+        const int r = w - d * g.c;
+        int sub = sub0 + d;
+        float sz;
+        const bool live = w < nsw * g.c && wrap_sub(g, sub, sz) &&
+            fld[RTYPE * n + jbase + sub * g.c + r] > 0.5f;
+        const unsigned same = __match_any_sync(wmask, w < nsw * g.c ? d : -1);
+        const unsigned hit = __ballot_sync(wmask, live) & same;
+        if (live && lane == 31 - __clz(hit)) atomicMax(&reach[d], r + 1);
+      }
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        off[0] = 0;
+        for (int d = 0; d < nsw; ++d) off[d + 1] = off[d] + reach[d];
+      }
+      __syncthreads();
+      const int total = off[nsw];
+      for (int base = 0; base < total; base += ld) {
+        const int rows = min(ld, total - base);
+        if (base > 0) __syncthreads();  // the previous round's readers
+        for (int q = threadIdx.x; q < rows; q += blockDim.x) {
+          // the staged sub-cell of sequence row base + q
+          const int pos = base + q;
+          int lo = 0, hi = nsw;  // off[lo] <= pos < off[hi]
+          while (hi - lo > 1) {
+            const int mid = (lo + hi) >> 1;
+            if (off[mid] <= pos) lo = mid; else hi = mid;
+          }
+          int sub = sub0 + lo;
+          float sz;
+          wrap_sub(g, sub, sz);
+          const int j = jbase + sub * g.c + (pos - off[lo]);
+          // 3D: the column axis is z; 2D: it is y, and z is not shifted
+          const float shy = dim3 ? sy : sz, shz = dim3 ? sz : 0.f;
+          const bool live = fld[RTYPE * n + j] > 0.5f &&
+              bbox.holds(fld[RX * n + j] + sx, fld[RY * n + j] + shy,
+                         fld[RZ * n + j] + shz);
+          stage_j<SW_FORCE>(win, ld, q, fld, n, j, sx, shy, shz, live, tb,
+                            p);
+        }
+        __syncthreads();
+        if (warp_alive) {
+          filter_window<SW_FORCE>(win, ld, 0, rows, true, 0, rows, bx, ir,
+                                  alive, wmask, lane, 32, wq, sir, warp * 32,
+                                  tb, p, acc);
+        }
+      }
+    }
+  }
+  if (s < gc) write_out<SW_FORCE>(out, n, i, alive, ir, tb, p, acc);
+}
+
+// Launches the queued force sweep on a cell layout; returns the CUDA error.
+template <int LAYOUT>
+int launch_cell_force(const CellGeo& g, const Phys& p, const float* fld,
+                      const float* tab2, const float* tab1, float* out,
+                      void* stream) {
+  using Fn = void (*)(const float*, const float*, const float*, CellGeo, Phys,
+                      int, float*);
+  const int gc = g.G * g.c;
+  const int nsw = g.G + 2 * g.k;
+  const long long ncols = g.dim == 3 ? (long long)g.ncx * g.ncy : g.ncx;
+  const int ngroups = g.G > 0 ? g.nsub_pad / g.G : 0;
+  if (g.G < 1 || g.c < 1 || g.k < 0 || ngroups < 1 ||
+      ngroups * g.G != g.nsub_pad || nsw > kMaxStagedCells || ncols < 1 ||
+      ngroups > 65535 || p.T1 < 1 || ncols * g.nsub_pad * g.c != g.n_slots ||
+      (g.dim != 2 && g.dim != 3) || (g.dim == 2 && g.ncy != 1) ||
+      (g.per_col && g.k > g.nsub_pad)) {
+    return (int)cudaErrorInvalidConfiguration;
+  }
+  const int threads = gc < kCellThreads ? (gc + 31) / 32 * 32
+                                         : kCellThreads;
+  const int nchunks = (gc + threads - 1) / threads;
+  const int ld = nsw * g.c < kStageRows ? nsw * g.c : kStageRows;
+  const size_t smem = sizeof(float) *
+      (table_floats(p.T1) + (size_t)SF_NF * ld + queue_floats(threads));
+  cudaError_t err = cudaSuccess;
+  const Fn kernel = pick_build<Fn>(cell_force_kernel<LAYOUT, 5>,
+                                   cell_force_kernel<LAYOUT, 6>, threads,
+                                   smem, &err);
+  if (err != cudaSuccess) return (int)err;
+  // always: another geometry's pick may have set it lower
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)ncols, (unsigned)ngroups, (unsigned)nchunks);
+  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(fld, tab2, tab1, g, p,
+                                                         ld, out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace sph

@@ -16,36 +16,45 @@
 // zero with type 0. The output is the (8, n_slots) matrix with the O* row
 // meanings; the wrapper zeroes it, and an empty i cell writes nothing.
 //
-// Work split. One block per i cell, one thread per slot of the cell
-// (blockDim = cap rounded up to a warp). For each of the 9 (3D) / 3 (2D)
-// neighbour columns the block stages the three cells cz-1, cz, cz+1 of that
-// column (3*cap rows) in shared memory, with the image shift added to the
-// positions: the plane shift of a periodic wrap across x (and y in 3D), and
-// the column-axis shift of a periodic wrap in cz. A neighbour column past a
-// non-periodic plane edge is skipped (the reference reads an all-dead
-// sentinel column there), and a cell past a non-periodic column end is
-// staged as no candidate (the reference's zvalid mask). Every thread then
-// scans the staged rows for its own slot, each cell's only as far as its
-// last live row.
+// Work split. Force: cell_force.cuh's queued sweep, the layout with G = 1,
+// k = 1, c = cap and nsub_pad = ncz (a block per cell and chunk of up to
+// 128 ranks; per neighbour column the three cells staged to their live
+// reach, each warp's box filter, exact tests and pair queue). Rho and
+// colour gradient: the one-pass scan below, column_sweep_kernel, one block
+// per i cell, one thread per slot of the cell (blockDim = cap rounded up
+// to a warp). For each of the 9 (3D) / 3 (2D) neighbour columns the block
+// stages the three cells cz-1, cz, cz+1 of that column (3*cap rows) in
+// shared memory, with the image shift added to the positions: the plane
+// shift of a periodic wrap across x (and y in 3D), and the column-axis
+// shift of a periodic wrap in cz. A neighbour column past a non-periodic
+// plane edge is skipped (the reference reads an all-dead sentinel column
+// there), and a cell past a non-periodic column end is staged as no
+// candidate (the reference's zvalid mask). Every thread then scans the
+// staged rows for its own slot, each cell's only as far as its last live
+// row. Its force instantiation is kept as column_force_scan_launch, the
+// check the queued force is held to bit for bit (chip_smoke.py, the card
+// tests); no path of the port launches it.
 //
 // Pair mask, the TPU kernel's: type_i > 0.5, type_j > 0.5, rsq > 1e-12.
 // Rows that are no candidate (dead slots, cells past an edge) are staged at
 // a far position, so one rsq compare rejects them.
 //
-// What bounds it: instruction throughput. Each i row scans 27*cap
-// candidates (3,024 at the 1M bench's cap of 112) of which ~3-4% lie within
-// the cutoff. A candidate is rejected after three shared loads and one
-// compare against the sweep's largest squared cutoff, before any table
+// What bounds it: instruction throughput. Each i row has 27 cells of
+// candidates (~1,700 live-reach rows at the 1M bench's ~64 rows a cell),
+// of which ~110 lie within the cutoff. The one-pass scan tests every
+// candidate in every lane and runs the pair body in lockstep wherever any
+// lane of the warp has a live pair; its blocks are as wide as the cap, so
+// at cap 280 most of their warps hold no alive row. It rejects a
+// candidate after three shared loads and one compare, before any table
 // lookup; per-j terms (EOS p/rho^2, sound speed, 1/rho, tension norms) are
 // computed once while staging; coefficient tables sit in shared memory.
-// The scan of a staged cell stops after its last live row, so its cost
-// follows the cells' occupancy (~64 rows on the 1M bench's lattice), not
-// the cap (112, and more after an overflow re-choice). Threads of slots
-// beyond the i cell's occupancy idle through the scan. Built without
-// fast-math: IEEE divides and square roots.
+// The queued force runs the body 32 live pairs a pass instead, in blocks
+// cut to the live ranks (cell_force.cuh). Built without fast-math: IEEE
+// divides and square roots.
 
 #include <cuda_runtime.h>
 
+#include "cell_force.cuh"
 #include "sph_pair.cuh"
 
 namespace {
@@ -54,10 +63,10 @@ using namespace sph;
 
 constexpr int kMaxThreads = 512;  // the largest cell capacity taken
 // Registers: at most 64 a thread (two blocks of 512 threads per SM). Left
-// free, ptxas gives the force sweep 99, which halves the warps resident on
-// an SM; on the 1M boiling bench's main path the sweep then took 27.9 ms
-// per launch against 16.0 ms at 64 (profile_step, NVIDIA H100 80GB HBM3,
-// 700 W). It is bound by latency and needs the warps.
+// free, ptxas gave the one-pass force sweep 99, which halved the warps
+// resident on an SM; on the 1M boiling bench's main path it then took
+// 27.9 ms per launch against 16.0 ms at 64 (profile_step, NVIDIA H100
+// 80GB HBM3, 700 W). It is bound by latency and needs the warps.
 constexpr int kMinBlocks = 2;
 
 struct ColGeo {
@@ -204,7 +213,20 @@ extern "C" int column_cgrad_launch(COLUMN_ARGS) {
   return launch<SW_CGRAD>(COLUMN_PASS);
 }
 
+// the queued force sweep (cell_force.cuh)
 extern "C" int column_force_launch(COLUMN_ARGS) {
+  const long long ncells = (long long)ncx * ncy * ncz;
+  if (cap < 1 || cap > kMaxThreads || ncells * cap != n_slots) {
+    return (int)cudaErrorInvalidConfiguration;
+  }
+  const CellGeo g{n_slots, ncx, ncy, ncz, 1, cap, 1, dim, per_x, per_y,
+                  per_col, lx, ly, lcol};
+  return launch_cell_force<L_COLUMN>(g, Phys{dim, kern, flags, T1, cutmax2},
+                                     fld, tab2, tab1, out, stream);
+}
+
+// the one-pass force sweep: the check the queued one is held to
+extern "C" int column_force_scan_launch(COLUMN_ARGS) {
   return launch<SW_FORCE>(COLUMN_PASS);
 }
 

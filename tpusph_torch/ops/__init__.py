@@ -7,11 +7,15 @@ kernels, and the compacted force sweep over the strip windows
 def all_kernels() -> dict:
     """Every kernel wrapper of the port by name (``strip_rho`` ...
     ``strip_vapor``, ``column_rho`` ... ``column_force``, ``band_rho`` ...
-    ``band_force``, ``compact_force``): one registry of launch counts.
-    Imported on call, so that importing the package imports no backend."""
+    ``band_force``, ``compact_force``, and the check kernels
+    ``column_force_scan`` and ``band_force_scan``, which no path launches):
+    one registry of launch counts. Imported on call, so that importing the
+    package imports no backend."""
     from tpusph_torch.ops import (band_pair, mxu_compact, pallas_pair,
                                   strip_pair)
     return {**{f"strip_{k}": w for k, w in strip_pair.KERNELS.items()},
             **{f"column_{k}": w for k, w in pallas_pair.KERNELS.items()},
             **{f"band_{k}": w for k, w in band_pair.KERNELS.items()},
-            **{f"compact_{k}": w for k, w in mxu_compact.KERNELS.items()}}
+            **{f"compact_{k}": w for k, w in mxu_compact.KERNELS.items()},
+            "column_force_scan": pallas_pair.column_force_scan,
+            "band_force_scan": band_pair.band_force_scan}

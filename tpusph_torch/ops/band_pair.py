@@ -596,30 +596,40 @@ def plain_band_sweep(sweep: str, fld: torch.Tensor, tabs: DeviceTables,
 
 
 class BandSweepKernel:
-    """Wrapper of one CUDA band sweep (``band_{sweep}_launch``).
+    """Wrapper of one CUDA band sweep (``band_{launcher}_launch``).
 
     Replaces ``tpusph.ops.band_pair.make_band_kernel(sweep=...)`` (the
     ``pl.pallas_call`` at band_pair.py:554). CPU tensors take the plain
     version (``plain_band_sweep``); CUDA tensors launch the kernel or
     raise. ``launches`` counts kernel launches only.
 
-    On the card the sweep is bound by instruction throughput: each i row
-    scans 9 x (G + 2k) x c candidates (5,040 on the 1M bench's lattice,
-    6,912 after its warmup re-choice), a few percent of them within the
-    cutoff. One block per (column, group)
-    stages each neighbour column's window once in shared memory (with the
-    image shift and the per-j terms applied once), keeps the tables in
-    shared memory, and scans each staged sub-cell only to its last live
-    rank."""
+    On the card the sweeps are bound by instruction throughput: each i row
+    has 9 x (G + 2k) sub-cells of candidates (~3,500 rows to their live
+    reach on the 1M bench's lattice at G 4, c 128), ~110 of them within
+    the cutoff. The force sweep filters before it computes
+    (``csrc/cell_force.cuh``, shared with the column sweep): a block per
+    group and chunk of up to 128 slots, the chunks past the alive ranks
+    exiting at once; per neighbour column the group's staged sub-cells to
+    their live reach, a warp's box filter (which also drops the staged
+    sub-cells beyond the warp's own +-k), each lane's exact test of the
+    survivors, and a warp pair queue that runs the body 32 live pairs a
+    pass, each row adding its pairs in the one-pass scan's order (the same
+    bits). ``cell_filter.cell_pass_counts`` gives those counts. Rho and
+    colour gradient keep the one-pass scan: a block per group, every lane
+    scanning every staged sub-cell to its live reach. The one-pass force
+    scan is ``band_force_scan`` (launcher ``force_scan``), a check kernel
+    that no path launches: the queued force is held to it bit for bit on
+    the card."""
 
-    def __init__(self, sweep: str):
+    def __init__(self, sweep: str, launcher: str | None = None):
         self.sweep = sweep
+        self.launcher = launcher or sweep
         self.launches = 0
 
     def __call__(self, fld: torch.Tensor, tabs: DeviceTables,
                  geom: BandGeometry, spec: PhysicsSpec) -> torch.Tensor:
         n, T1 = geom.n_slots, tabs.tab1.shape[1]
-        what = f"band {self.sweep} sweep"
+        what = f"band {self.launcher} sweep"
         check_inputs(what, fld, (
             ("fld", fld, (F_ROWS, n), torch.float32),
             ("tab2", tabs.tab2, (8, T1, T1), torch.float32),
@@ -633,7 +643,7 @@ class BandSweepKernel:
         out = torch.zeros(8, n, dtype=torch.float32, device=fld.device)
         per = geom.periodic
         cuda_build.launch_band(
-            self.sweep, fld, tabs.tab2, tabs.tab1, out, n_slots=n,
+            self.launcher, fld, tabs.tab2, tabs.tab1, out, n_slots=n,
             ncx=geom.ncx, ncy=geom.ncy, nsub_pad=geom.nsub_pad, G=geom.G,
             c=geom.c, k=geom.k, dim=geom.dim, per_x=int(per[0]),
             per_y=int(geom.dim == 3 and per[1]),
@@ -650,6 +660,8 @@ band_cgrad = BandSweepKernel("cgrad")
 band_force = BandSweepKernel("force")
 # every kernel wrapper of the band backend, by sweep (launch counts)
 KERNELS = {"rho": band_rho, "cgrad": band_cgrad, "force": band_force}
+# the one-pass force scan: on no path, the queued force's bitwise check
+band_force_scan = BandSweepKernel("force", "force_scan")
 
 
 # --------------------------------------------------------------------------

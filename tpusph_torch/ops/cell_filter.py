@@ -1,0 +1,200 @@
+"""The counts that decide the column and band force kernels' design
+(``csrc/cell_force.cuh``), on any device: the counterpart of
+``strip_pair.warp_pass_counts`` for the two cell layouts. Used by
+chip_smoke.py and the tests, never on the main path.
+
+Both layouts are the band's shape (``as_band``): the column grid is the
+band layout with G = 1, k = 1, c = cap and nsub_pad = ncz, so the counts
+take the kernel's windows from ``band_pair._band_windows`` for either.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpusph_torch.ops.band_pair import BandGeometry, _band_windows
+from tpusph_torch.ops.pallas_pair import ColumnGrid
+from tpusph_torch.ops.rows import RTYPE, RX
+from tpusph_torch.ops.strip_pair import _box_d2, box_r2
+
+# the kernel's constants (csrc/cell_force.cuh): i slots per block (a chunk
+# of the group) and staged rows per round
+CELL_THREADS = 128
+STAGE_ROWS = 256
+# (warp lane, candidate) entries per chunk of the counts
+_CHUNK = 1 << 23
+
+
+def as_band(layout) -> BandGeometry:
+    """The band view of a column grid (G 1, k 1, c cap, nsub_pad ncz);
+    a band geometry as it is."""
+    if isinstance(layout, BandGeometry):
+        return layout
+    cg: ColumnGrid = layout
+    return BandGeometry(
+        ncx=cg.ncx, ncy=cg.ncy, nsub=cg.ncz, G=1, c=cg.cap, k=1, dim=cg.dim,
+        periodic=cg.periodic, lengths=cg.lengths, origin=(0.0, 0.0, 0.0),
+        cell_xy=(0.0, 0.0), s_sub=0.0, skin=0.0)
+
+
+def block_threads(geom: BandGeometry) -> int:
+    """Threads of the kernel's block: a chunk of up to CELL_THREADS slots
+    of a group, a whole number of warps."""
+    return min(CELL_THREADS, -(-geom.gc // 32) * 32)
+
+
+def _boxes(x, alive, rc):
+    """Bounding boxes of the alive rows along dim 1 of x (B, L, 3), alive
+    (B, L), and their filter radius squared (``strip_pair.box_r2``)."""
+    lo = torch.where(alive[..., None], x, float("inf")).amin(1)
+    hi = torch.where(alive[..., None], x, float("-inf")).amax(1)
+    return lo, hi, box_r2(lo, hi, rc)
+
+
+def cell_pass_counts(fld: torch.Tensor, layout, cut2: float) -> dict:
+    """The counts of the column (``layout`` a ``ColumnGrid``) or band
+    (a ``BandGeometry``) force kernel's phases, under its blocks (a chunk
+    of ``block_threads`` slots of a group), warps (32 consecutive slots of
+    a chunk) and staging rounds (at most STAGE_ROWS rows of a neighbour
+    column's staged sub-cells, in (sub-cell, rank) order, each sub-cell to
+    its live reach):
+      rows / warps    alive i rows / warps that hold one;
+      blocks          blocks launched; blocks_alive: those with an alive
+                      row (the rest exit at their first barrier);
+      candidates      rows the one-pass scan tests per alive row: each
+                      staged sub-cell to its live reach;
+      staged_rows     rows the alive blocks stage (every block its group's
+                      window), and staged_with_terms those inside the
+                      block's box, whose per-j terms the block computes;
+      rounds          (alive block, neighbour column) staging rounds, and
+                      multi_round_windows those with more than one;
+      box_survivors   (warp, neighbour column, row) where an alive staged
+                      row survives the warp's box test;
+      live_pairs      (i, j) with both alive and 1e-12 < rsq < cut2;
+      old_passes      pair-body passes of the lockstep scan: (warp,
+                      neighbour column, row) where any lane has a live
+                      pair;
+      queue_passes    pair-body passes of the warp pair queue: per warp,
+                      neighbour column and round ceil(live pairs / 32);
+      most_window_pairs  the most live pairs one warp has in one neighbour
+                      column (beyond the queue's 128 it flushes inside it);
+      live_outside_box  live pairs whose j row fails its warp's or its
+                      block's box (0: the filter is conservative)."""
+    geom = as_band(layout)
+    dev = fld.device
+    G, c, k, nnbr = geom.G, geom.c, geom.k, geom.nnbr
+    nsw, gc = G + 2 * k, geom.gc
+    S = nnbr * nsw
+    T = block_threads(geom)
+    wpc = T // 32                                  # warps per chunk
+    nch = -(-gc // T)                              # chunks per group
+    nwg = nch * wpc                                # warps per group
+    nblk = geom.ncols * geom.ngroups
+    ld = min(nsw * c, STAGE_ROWS)
+    rc = float(np.sqrt(np.float32(cut2)))
+    cut2 = float(np.float32(cut2))
+    counts = dict(rows=0, warps=0, blocks=nblk * nch, blocks_alive=0,
+                  candidates=0, staged_rows=0, staged_with_terms=0,
+                  rounds=0, multi_round_windows=0, box_survivors=0,
+                  live_pairs=0, old_passes=0, queue_passes=0,
+                  most_window_pairs=0, live_outside_box=0)
+
+    alive = fld[RTYPE] > 0.5
+    # each sub-cell's live reach, and each block's staged sub-cells'
+    reach = (alive.reshape(-1, c).long()
+             * torch.arange(1, c + 1, device=dev)).amax(1)
+    wbase, wshift = (torch.as_tensor(a, device=dev)
+                     for a in _band_windows(geom))          # (nblk, S(, 3))
+    reach_s = torch.where(wbase >= 0, reach[wbase.clamp(min=0) // c], 0)
+    per_kk = reach_s.reshape(nblk, nnbr, nsw)
+    off = (per_kk.cumsum(-1) - per_kk).reshape(nblk, S)    # within its kk
+    total = per_kk.sum(-1)                                 # (nblk, nnbr)
+    R = max(int(reach.max()), 1)
+    maxr = max(-(-int(total.max()) // ld), 1)
+
+    # the i rows of each group, padded to its chunks' warps
+    s_g = torch.arange(nwg * 32, device=dev)
+    islot = torch.arange(nblk, device=dev)[:, None] * gc + s_g.clamp(
+        max=gc - 1)
+    alive_i = alive[islot] & (s_g < gc)                    # (nblk, nwg*32)
+    xi = torch.stack([fld[RX + a][islot] for a in range(3)], -1)
+    wlo, whi, wr2 = _boxes(xi.reshape(nblk * nwg, 32, 3),
+                           alive_i.reshape(nblk * nwg, 32), rc)
+    blo, bhi, br2 = _boxes(xi.reshape(nblk * nch, T, 3),
+                           alive_i.reshape(nblk * nch, T), rc)
+    warp_alive = alive_i.reshape(nblk * nwg, 32).any(1)
+    chunk_alive = alive_i.reshape(nblk * nch, T).any(1)
+    counts["rows"] = int(alive_i.sum())
+    counts["warps"] = int(warp_alive.sum())
+    counts["blocks_alive"] = int(chunk_alive.sum())
+    counts["candidates"] = int((alive_i.sum(1) * reach_s.sum(1)).sum())
+    blk_of_chunk = torch.arange(nblk * nch, device=dev) // nch
+    live_chunks = blk_of_chunk[chunk_alive]
+    counts["staged_rows"] = int(reach_s[live_chunks].sum())
+    rounds = -(-total[live_chunks] // ld)
+    counts["rounds"] = int(rounds.sum())
+    counts["multi_round_windows"] = int((rounds > 1).sum())
+
+    r = torch.arange(R, device=dev)
+    kk_of = (torch.arange(S, device=dev) // nsw)[:, None]  # (S, 1)
+
+    def candidates(blk):
+        """(alive, staged position (3 x (B, S, R))) of the blocks' staged
+        rows."""
+        ok = r < reach_s[blk][..., None]
+        jslot = torch.where(ok, wbase[blk].clamp(min=0)[..., None] + r, 0)
+        xj = [fld[RX + a][jslot] + wshift[blk][..., a, None]
+              for a in range(3)]
+        return ok & alive[jslot], xj
+
+    def inside(xj, lo, hi, r2):
+        return _box_d2(*xj, [v[:, None, None] for v in lo.T],
+                       [v[:, None, None] for v in hi.T]) < r2[:, None, None]
+
+    # block-level: the rows staged with their terms
+    step = max(1, _CHUNK // (S * R))
+    ids = chunk_alive.nonzero()[:, 0]
+    for q0 in range(0, ids.numel(), step):
+        ch = ids[q0:q0 + step]
+        ok, xj = candidates(ch // nch)
+        keep = ok & inside(xj, blo[ch], bhi[ch], br2[ch])
+        counts["staged_with_terms"] += int(keep.sum())
+
+    # warp-level: box survivors, live pairs and passes
+    step = max(1, _CHUNK // (32 * S * R))
+    ids = warp_alive.nonzero()[:, 0]
+    for q0 in range(0, ids.numel(), step):
+        w = ids[q0:q0 + step]
+        blk, wg = w // nwg, w % nwg
+        ch = blk * nch + wg // wpc
+        ok, xj = candidates(blk)
+        bsurv = inside(xj, blo[ch], bhi[ch], br2[ch])
+        wsurv = inside(xj, wlo[w], whi[w], wr2[w])
+        counts["box_survivors"] += int((ok & bsurv & wsurv).sum())
+        lane = wg[:, None] * 32 + torch.arange(32, device=dev)
+        ai = alive_i[blk[:, None], lane]                     # (A, 32)
+        xw = xi[blk[:, None], lane]                          # (A, 32, 3)
+        rsq = None
+        for a in range(3):
+            d = xw[..., a][:, :, None, None] - xj[a][:, None]
+            rsq = d * d if rsq is None else rsq + d * d
+        live = (ai[:, :, None, None] & ok[:, None] & (rsq > 1e-12)
+                & (rsq < cut2))                              # (A,32,S,R)
+        del rsq
+        counts["live_pairs"] += int(live.sum())
+        counts["live_outside_box"] += int(
+            (live & ~(bsurv & wsurv)[:, None]).sum())
+        counts["old_passes"] += int(live.any(1).sum())
+        npair = live.sum(1)                                  # (A, S, R)
+        rnd = torch.clamp((off[blk][..., None] + r) // ld,
+                          max=maxr - 1)                      # (A, S, R)
+        key = kk_of * maxr + rnd
+        per = torch.zeros(w.numel(), nnbr * maxr, dtype=torch.long,
+                          device=dev).scatter_add_(
+            1, key.reshape(w.numel(), -1), npair.reshape(w.numel(), -1))
+        counts["queue_passes"] += int(((per + 31) // 32).sum())
+        per_kk_pairs = npair.reshape(w.numel(), nnbr, -1).sum(-1)
+        counts["most_window_pairs"] = max(counts["most_window_pairs"],
+                                          int(per_kk_pairs.max()))
+    return counts

@@ -4,7 +4,11 @@ colour gradient, force and the phase-change vapor query,
 force, ``csrc/column_sweeps.cu``), the band sweeps (rho, colour
 gradient, force, ``csrc/band_sweeps.cu``) and the compacted force sweep
 (``csrc/compact_force.cu``), which share their pair physics through
-``csrc/sph_pair.cuh``.
+``csrc/sph_pair.cuh``; the strip, column and band force sweeps share the
+warp box filter and pair queue (``csrc/warp_filter.cuh``), the column and
+band ones their queued force kernel (``csrc/cell_force.cuh``), and each
+of those two libraries also exports its one-pass force scan as
+``{column,band}_force_scan_launch``, a check kernel no path launches.
 
 Each source has a plain C interface: it is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library under ``tpusph_torch/_build/`` at first
@@ -32,7 +36,9 @@ SOURCES = {"strip": _PKG / "csrc" / "strip_sweeps.cu",
            "column": _PKG / "csrc" / "column_sweeps.cu",
            "band": _PKG / "csrc" / "band_sweeps.cu",
            "compact": _PKG / "csrc" / "compact_force.cu"}
-HEADERS = (_PKG / "csrc" / "sph_pair.cuh",)
+HEADERS = tuple(_PKG / "csrc" / h for h in ("sph_pair.cuh",
+                                             "warp_filter.cuh",
+                                             "cell_force.cuh"))
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -89,7 +95,7 @@ def _bind(name: str, handle: ctypes.CDLL) -> None:
         fn.restype = i32
     else:
         ints = _COLUMN_INT_ARGS if name == "column" else _BAND_INT_ARGS
-        for sweep in ("rho", "cgrad", "force"):
+        for sweep in ("rho", "cgrad", "force", "force_scan"):
             fn = getattr(handle, f"{name}_{sweep}_launch")
             fn.argtypes = ([ptr] * 4 + [i32] * len(ints)
                            + [f32] * len(_COLUMN_FLOAT_ARGS) + [ptr])
@@ -173,18 +179,18 @@ def launch_vapor(fld, perm, shift, delta, out, *, cut2: float,
 
 def launch_column(sweep: str, fld, tab2, tab1, out, *, lx: float,
                   ly: float, lcol: float, cutmax2: float, **ints) -> None:
-    """Launch one column sweep on the current stream; raises on a refused
-    launch. Tensors are checked by the caller
-    (pallas_pair.ColumnSweepKernel)."""
+    """Launch one column sweep (``sweep`` rho, cgrad, force or the check
+    kernel force_scan) on the current stream; raises on a refused launch.
+    Tensors are checked by the caller (pallas_pair.ColumnSweepKernel)."""
     _call("column", f"column_{sweep}_launch", (fld, tab2, tab1, out), ints,
           _COLUMN_INT_ARGS, (lx, ly, lcol, cutmax2), fld.device)
 
 
 def launch_band(sweep: str, fld, tab2, tab1, out, *, lx: float, ly: float,
                 lcol: float, cutmax2: float, **ints) -> None:
-    """Launch one band sweep on the current stream; raises on a refused
-    launch. Tensors are checked by the caller
-    (band_pair.BandSweepKernel)."""
+    """Launch one band sweep (``sweep`` rho, cgrad, force or the check
+    kernel force_scan) on the current stream; raises on a refused launch.
+    Tensors are checked by the caller (band_pair.BandSweepKernel)."""
     _call("band", f"band_{sweep}_launch", (fld, tab2, tab1, out), ints,
           _BAND_INT_ARGS, (lx, ly, lcol, cutmax2), fld.device)
 

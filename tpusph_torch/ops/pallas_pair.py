@@ -178,40 +178,51 @@ def plain_column_sweep(sweep: str, fld: torch.Tensor, tabs: DeviceTables,
 
 
 class ColumnSweepKernel:
-    """Wrapper of one CUDA column sweep (``column_{sweep}_launch``).
+    """Wrapper of one CUDA column sweep (``column_{launcher}_launch``).
 
     Replaces ``tpusph.ops.pallas_pair.make_column_kernel(sweep=...)`` (the
     ``pl.pallas_call`` at pallas_pair.py:542). CPU tensors take the plain
     version (``plain_column_sweep``); CUDA tensors launch the kernel or
     raise. ``launches`` counts kernel launches only.
 
-    On the card the sweep is bound by instruction throughput: each i row
-    scans 27 * cap candidates (3,024 at the 1M bench's cap of 112), a few
-    percent of them within the cutoff. One block per i cell stages each
-    neighbour column's three cells in shared memory (with the image shift
-    and per-j terms applied once), keeps the tables in shared memory, and
-    rejects a candidate on rsq before any table lookup."""
+    On the card the sweeps are bound by instruction throughput: each i row
+    has 27 cells of candidates (~1,700 rows to the cells' live reach at the
+    1M bench's ~64 rows a cell), ~110 of them within the cutoff. The force
+    sweep filters before it computes (``csrc/cell_force.cuh``): a block
+    per cell and chunk of up to 128 ranks, so the chunks past a cell's
+    alive rows exit at once and a cap set by one dense cell costs the
+    other cells nothing; per neighbour column the three cells staged to
+    their live reach, a warp's box filter, each lane's exact test of the
+    survivors, and a warp pair queue that runs the body 32 live pairs a
+    pass, each row adding its pairs in the one-pass scan's order (the same
+    bits). ``cell_filter.cell_pass_counts`` gives those counts on a layout.
+    Rho and colour gradient keep the one-pass scan: a block per cell as
+    wide as the cap, every lane scanning every candidate to the cells'
+    live reach. The one-pass force scan is ``column_force_scan``
+    (launcher ``force_scan``), a check kernel that no path launches: the
+    queued force is held to it bit for bit on the card."""
 
-    def __init__(self, sweep: str):
+    def __init__(self, sweep: str, launcher: str | None = None):
         self.sweep = sweep
+        self.launcher = launcher or sweep
         self.launches = 0
 
     def __call__(self, fld: torch.Tensor, tabs: DeviceTables,
                  cg: ColumnGrid, spec: PhysicsSpec) -> torch.Tensor:
         n, T1 = cg.n_slots, tabs.tab1.shape[1]
-        check_inputs(f"column {self.sweep} sweep", fld, (
+        check_inputs(f"column {self.launcher} sweep", fld, (
             ("fld", fld, (F_ROWS, n), torch.float32),
             ("tab2", tabs.tab2, (8, T1, T1), torch.float32),
             ("tab1", tabs.tab1, (5, T1), torch.float32)))
         if not 1 <= cg.cap <= MAX_CAP:
-            raise ValueError(f"column {self.sweep} sweep: cell capacity "
+            raise ValueError(f"column {self.launcher} sweep: cell capacity "
                              f"{cg.cap} outside [1, {MAX_CAP}]")
         if fld.device.type == "cpu":
             return plain_column_sweep(self.sweep, fld, tabs, cg, spec)
         out = torch.zeros(8, n, dtype=torch.float32, device=fld.device)
         per = cg.periodic
         cuda_build.launch_column(
-            self.sweep, fld, tabs.tab2, tabs.tab1, out, n_slots=n,
+            self.launcher, fld, tabs.tab2, tabs.tab1, out, n_slots=n,
             ncx=cg.ncx, ncy=cg.ncy, ncz=cg.ncz, cap=cg.cap, dim=cg.dim,
             per_x=int(per[0]), per_y=int(cg.dim == 3 and per[1]),
             per_col=int(per[cg.col_axis]), kernel=spec.kernel,
@@ -227,6 +238,8 @@ column_cgrad = ColumnSweepKernel("cgrad")
 column_force = ColumnSweepKernel("force")
 # every kernel wrapper of the column backend, by sweep (launch counts)
 KERNELS = {"rho": column_rho, "cgrad": column_cgrad, "force": column_force}
+# the one-pass force scan: on no path, the queued force's bitwise check
+column_force_scan = ColumnSweepKernel("force", "force_scan")
 
 
 # --------------------------------------------------------------------------

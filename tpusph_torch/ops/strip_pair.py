@@ -932,13 +932,24 @@ def _warp_boxes(fld, geom: StripGeometry, c0: int, c1: int, rc: float):
                                   alive, x, -big), "amax")
     has = torch.zeros(nw, dtype=torch.int32, device=dev).scatter_reduce(
         0, wid, alive.int(), "amax") > 0
+    first = (torch.arange(nw, device=dev) % wpb) * 32
+    last = torch.clamp(first + 31, max=brows - 1)
+    return (lo, hi, box_r2(lo, hi, rc), has, first // geom.ts,
+            last // geom.ts)
+
+
+def box_r2(lo: torch.Tensor, hi: torch.Tensor, rc: float) -> torch.Tensor:
+    """The kernels' filter radius squared of boxes (lo, hi), (B, 3): rp^2
+    with rp = rc + 1e-5 * (rc + the box's largest coordinate magnitude),
+    each float32 operation rounded once (csrc/warp_filter.cuh,
+    WarpBox::set_radius). A box with no alive row (bounds at +-inf) gets
+    an infinite radius: the counts leave such boxes out."""
+    dev = lo.device
     rc32 = torch.tensor(rc, dtype=torch.float32, device=dev)
     mag = torch.maximum(lo.abs(), hi.abs()).amax(1)
     rp = rc32 + torch.tensor(1e-5, dtype=torch.float32, device=dev) * (
         rc32 + mag)
-    first = (torch.arange(nw, device=dev) % wpb) * 32
-    last = torch.clamp(first + 31, max=brows - 1)
-    return lo, hi, rp * rp, has, first // geom.ts, last // geom.ts
+    return rp * rp
 
 
 def _box_d2(x, y, z, lo, hi):

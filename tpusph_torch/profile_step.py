@@ -30,19 +30,31 @@ from tpusph_torch.bench import build_bench_sim, card_info, run_bench
 # the hand-written kernels by their names in tpusph_torch.ops.all_kernels;
 # a sweep kernel's template argument is the Sweep enum (rho 0, cgrad 1,
 # force 2); the strip rho and force sweeps are strip_filter_kernel, whose
-# second template argument is its blocks per SM
+# second template argument is its blocks per SM; the column and band force
+# sweeps are cell_force_kernel, whose first is the layout (column 0, band
+# 1), and the one-pass force instantiation of their sweep kernels is the
+# check kernel {column,band}_force_scan
 SWEEPS = ("rho", "cgrad", "force")
 KERNEL_NAMES = tuple(f"{b}_{s}" for b in ("strip", "column", "band")
-                     for s in SWEEPS) + ("strip_vapor",)
+                     for s in SWEEPS) + (
+    "strip_vapor", "column_force_scan", "band_force_scan")
 _SWEEP = re.compile(
     r"(strip|column|band)_(?:sweep|filter)_kernel<(?:\(int\))?(\d)[,>]")
+_CELL = re.compile(r"cell_force_kernel<(?:\(int\))?(\d)[,>]")
 
 
 def _kernel_of(name: str) -> str | None:
     if "strip_vapor_kernel" in name:
         return "strip_vapor"
+    m = _CELL.search(name)
+    if m:
+        return f"{('column', 'band')[int(m.group(1))]}_force"
     m = _SWEEP.search(name)
-    return f"{m.group(1)}_{SWEEPS[int(m.group(2))]}" if m else None
+    if not m:
+        return None
+    kind, sweep = m.group(1), SWEEPS[int(m.group(2))]
+    return f"{kind}_force_scan" if kind != "strip" and sweep == "force" \
+        else f"{kind}_{sweep}"
 
 
 def profile_window(mode: str, n_particles: int, steps: int,
