@@ -65,7 +65,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
  13. column  — on the bench `boiling` state under backend="pallas" (the
                column kernel on the cell grid) after the initial sort, the
                three column sweeps' kernels against their plain versions,
-               as in phase 3; the queued force kernel (csrc/cell_force.cuh)
+               as in phase 3; the queued force kernel (csrc/cell_sweep.cuh)
                also against the one-pass check kernel
                (column_force_scan_launch) on the same inputs: fails if any
                alive row differs bitwise, times both with CUDA events in
@@ -86,13 +86,24 @@ Phases, each of which raises on failure (exit code != 0, no result line):
  17. band    — on the bench `dynamic` state under backend="band" (the
                slot-resident sub-cell layout) after the initial build, the
                three band sweeps' kernels against their plain versions, and
-               the queued force kernel against the one-pass check kernel
-               (band_force_scan_launch), as in phase 13.
+               each against its one-pass check kernel
+               (band_{rho,cgrad,force}_scan_launch) as in phase 13: the
+               queued force, and the rho and colour-gradient kernels of
+               csrc/cell_sweep.cuh (box filter; the colour gradient's
+               colour gate), each failing if any alive row differs bitwise,
+               timed in turns beside its check kernel (fails unless the new
+               one is the faster), with the counts of its phases
+               (cell_filter.cell_pass_counts for the sweep: blocks that exit
+               and, for the colour gradient, that exit on the gate; rows
+               staged and staged with terms; box survivors; live pairs;
+               body passes).
  18. band dynamic — resets the counts, runs the `dynamic` bench with
                backend="band", and checks the three band kernels were
                launched and no other was (the strip's, the column's and the
-               one-pass check kernels included), the timed windows ran on
-               BandBackend, plus phase 4's ledgers.
+               one-pass check kernels band_rho_scan, band_cgrad_scan and
+               band_force_scan included: every main path asserts them at
+               0), the timed windows ran on BandBackend, plus phase 4's
+               ledgers.
  19. band    — phase 17 again on the layout after the band path.
  20. band slice — the 16^3 `dynamic` bench slice on band, GPU against CPU.
  21. ladder  — a phase-change run whose periodic column axis is too short
@@ -104,10 +115,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 Prints the five bench JSON lines, one JSON line of the kernels (launches
 on the boiling paths, the band path and the compacted sweep's two paths;
 times and bounds from phases 11, 15, 19 and 6, the largest error of all
-comparisons; for the column and band force kernels also the one-pass check
-kernel's time in turns, the rows that differ bitwise from it and the
-counts of their phases), and as the last line {"ok": true, "device":
-{...}}. The check kernels are on no path and have no line of their own.
+comparisons; for the column force and the three band kernels also the
+one-pass check kernel's time in turns, the rows that differ bitwise from
+it and the counts of their phases), and as the last line {"ok": true,
+"device": {...}}. The check kernels are on no path and have no line of
+their own.
 """
 
 from __future__ import annotations
@@ -690,9 +702,10 @@ def bubble_slice(backend):
 
 
 def cell_layout(kind, backend, state, aux):
-    """(fld, layout, kernels, the one-pass force check kernel, plain sweep,
-    pair counter) of the column kernel's cell grid (``kind`` "column") or
-    the band's slot-resident sub-cells ("band"). Every alive row of either
+    """(fld, layout, kernels, the one-pass check kernels by sweep, plain
+    sweep, pair counter) of the column kernel's cell grid (``kind``
+    "column": its force kernel has a check kernel) or the band's
+    slot-resident sub-cells ("band": all three). Every alive row of either
     layout is an owned particle. ``count(fld, cut2, keep)`` counts the
     (i, j) pairs with both types alive and 1e-12 < rsq < cut2 in the
     sweeps' windows, filtered by ``keep(pi, pj)`` when given."""
@@ -710,7 +723,7 @@ def cell_layout(kind, backend, state, aux):
             return pallas_pair._column_pairs(fld, cg, b0, b1, cut2, reach)
 
         layout, mod, plain = cg, pallas_pair, pallas_pair.plain_column_sweep
-        scan = pallas_pair.column_force_scan
+        scans = {"force": pallas_pair.column_force_scan}
     else:
         geom = backend.geom
         fld = band_pair.pack_fields(state)
@@ -723,7 +736,7 @@ def cell_layout(kind, backend, state, aux):
             return band_pair._band_pairs(fld, geom, b0, b1, cut2, reach)
 
         layout, mod, plain = geom, band_pair, band_pair.plain_band_sweep
-        scan = band_pair.band_force_scan
+        scans = band_pair.SCANS
 
     def count(fld, cut2, keep=None):
         total = 0
@@ -732,43 +745,47 @@ def cell_layout(kind, backend, state, aux):
             total += pi.numel() if keep is None else int(keep(pi, pj).sum())
         return total
 
-    return fld, layout, mod.KERNELS, scan, plain, count
+    return fld, layout, mod.KERNELS, scans, plain, count
 
 
-def cell_counts(label, fld, layout, cut2):
-    """``cell_filter.cell_pass_counts`` on a column or band layout, printed
-    with the ratios that decide the queued force kernel's design; the host
-    copy of the kernel's box filter must keep every live pair. Returns the
-    counts."""
+def cell_counts(label, fld, layout, cut2, sweep="force", colors=None):
+    """``cell_filter.cell_pass_counts`` of ``sweep``'s kernel on a column
+    or band layout, printed with the ratios that decide its design; the
+    host copy of the kernel's box filter (and colour gate) must keep every
+    pair the sweep needs. Returns the counts."""
     from tpusph_torch.ops import cell_filter
-    c = cell_filter.cell_pass_counts(fld, layout, cut2)
+    c = cell_filter.cell_pass_counts(fld, layout, cut2, sweep, colors)
     rows, warps = max(c["rows"], 1), max(c["warps"], 1)
     print(f"  {label} counts: {json.dumps(c)}")
     print(f"  {label}: per row {c['candidates'] / rows:.1f} one-pass "
-          f"candidates, {c['live_pairs'] / rows:.1f} live pairs; blocks "
+          f"candidates, {c['live_pairs'] / rows:.1f} live pairs, "
+          f"{c['needed_pairs'] / rows:.2f} needed; blocks "
           f"{c['blocks_alive']} of {c['blocks']} hold an alive row, "
+          f"{c['gate_exits']} of those exit on the colour gate; "
           f"{c['rounds']} staging rounds ({c['multi_round_windows']} windows "
           f"in more than one), {c['staged_rows']} rows staged of which "
           f"{c['staged_with_terms']} with their terms; per warp "
           f"{c['box_survivors'] / warps:.1f} box survivors, body passes "
           f"{c['old_passes'] / warps:.1f} lockstep, "
-          f"{c['queue_passes'] / warps:.1f} queue "
-          f"({c['old_passes'] / max(c['queue_passes'], 1):.2f}x fewer); "
-          "lanes working in a body pass "
-          f"{c['live_pairs'] / (32 * max(c['old_passes'], 1)):.1%}, "
-          f"{c['live_pairs'] / (32 * max(c['queue_passes'], 1)):.1%}")
+          f"{c['body_passes'] / warps:.1f} in the kernel "
+          f"({c['old_passes'] / max(c['body_passes'], 1):.2f}x fewer); "
+          "lanes on a needed pair in a body pass "
+          f"{c['needed_pairs'] / (32 * max(c['old_passes'], 1)):.1%} "
+          "lockstep, "
+          f"{c['needed_pairs'] / (32 * max(c['body_passes'], 1)):.1%} in "
+          "the kernel")
     assert c["live_outside_box"] == 0, c
     return c
 
 
 def in_turns(label, run_new, run_scan, reps):
-    """CUDA-event times of the queued force kernel and the one-pass check
-    kernel on the same inputs, in turns (new, scan, scan, new); the queued
-    one must be the faster. Returns (ms, scan_ms), each the mean of its
-    two turns."""
+    """CUDA-event times of a filtered kernel and its one-pass check kernel
+    on the same inputs, in turns (new, scan, scan, new); the filtered one
+    must be the faster. Returns (ms, scan_ms), each the mean of its two
+    turns."""
     t = [cuda_ms(f, reps) for f in (run_new, run_scan, run_scan, run_new)]
     ms, scan_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
-    print(f"  {label}: queued force {t[0]:.3f} / {t[3]:.3f} ms, one-pass "
+    print(f"  {label}: filtered {t[0]:.3f} / {t[3]:.3f} ms, one-pass "
           f"check {t[1]:.3f} / {t[2]:.3f} ms in turns ({ms / scan_ms:.2f}x)")
     assert ms < scan_ms, (label, ms, scan_ms)
     return ms, scan_ms
@@ -778,19 +795,19 @@ def hold_cells_to_plain(sim, kind, after_run=False, reps=10):
     """Each column (``kind`` "column") or band ("band") kernel against its
     plain version on the layout of ``layout_state``, fed as the backend's
     force stage feeds them (rho patched before cgrad, cg before force);
-    the queued force kernel also against the one-pass check kernel (no
-    alive row may differ bitwise; both timed in turns, the queued one the
-    faster) with the counts of its phases; after a main path with phase
-    change also the cell-grid vapor query's time per firing. Returns
-    {name: report}."""
+    each kernel with a one-pass check kernel (column force; band rho,
+    cgrad and force) also against it (no alive row may differ bitwise;
+    both timed in turns, the filtered one the faster) with the counts of
+    its phases; after a main path with phase change also the cell-grid
+    vapor query's time per firing. Returns {name: report}."""
     import torch
     from tpusph_torch.ops.rows import (
         OCGX, OCGY, ODE, ODRHO, OFX, OFY, OFZ, ORHO, RCGX, RCGZ, RM, RRHO,
-        RTYPE)
+        RTYPE, TABLES_1D)
 
     backend, state, aux, tabs = layout_state(sim, after_run)
-    fld, layout, kernels, scan, plain, count = cell_layout(kind, backend,
-                                                           state, aux)
+    fld, layout, kernels, scans, plain, count = cell_layout(kind, backend,
+                                                            state, aux)
     spec = sim.spec
     alive = fld[RTYPE] > 0.5
     n_own = int(alive.sum())
@@ -842,24 +859,31 @@ def hold_cells_to_plain(sim, kind, after_run=False, reps=10):
         report[sweep] = dict(max_abs_err=max(errs), **timed(
             f"{kind} {sweep}", run_kernel, run_plain, n_own, ops, reps,
             kind=sweep))
-        if sweep == "force":
+        if sweep in scans:
             # the same pairs in the same order through the same pair body:
-            # equal bit for bit on every alive row (a pair the queued
-            # kernel's filter dropped would show here)
-            out_s = scan(fld, tabs, layout, spec)
-            differ = int((out_k[list(rows["force"])][:, alive]
-                          != out_s[list(rows["force"])][:, alive]).any(0)
-                         .sum())
-            print(f"  {kind} force: alive rows that differ bitwise between "
-                  f"the queued force and the one-pass check kernel: {differ}"
-                  f" of {n_own} (must be 0)")
-            assert differ == 0, (kind, differ)
-            ms, scan_ms = in_turns(f"{kind} force", run_kernel,
-                                   lambda: scan(fld, tabs, layout, spec),
+            # equal bit for bit on every alive row (a pair the kernel's
+            # filter or colour gate dropped would show here)
+            scan = scans[sweep]
+
+            def run_scan():
+                return scan(fld, tabs, layout, spec)
+
+            out_s = run_scan()
+            sel = list(rows[sweep])
+            differ = int((out_k[sel][:, alive].view(torch.int32)
+                          != out_s[sel][:, alive].view(torch.int32))
+                         .any(0).sum())
+            print(f"  {kind} {sweep}: alive rows that differ bitwise between "
+                  f"the filtered kernel and the one-pass check kernel: "
+                  f"{differ} of {n_own} (must be 0)")
+            assert differ == 0, (kind, sweep, differ)
+            ms, scan_ms = in_turns(f"{kind} {sweep}", run_kernel, run_scan,
                                    reps)
-            report["force"].update(
+            report[sweep].update(
                 ms_in_turns=ms, scan_ms=scan_ms, rows_differ_bitwise=differ,
-                warp_passes=cell_counts(f"{kind} force", fld, layout, cut2))
+                warp_passes=cell_counts(
+                    f"{kind} {sweep}", fld, layout, tabs.cutmax2[sweep],
+                    sweep, tabs.tab1[TABLES_1D.index("color")]))
         if sweep == "rho":
             total = out_p[ORHO] * fld[RM] if spec.rhosum_nd else out_p[ORHO]
             fld[RRHO] = torch.where(alive, total, fld[RRHO])

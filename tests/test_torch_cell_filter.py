@@ -1,4 +1,4 @@
-"""The counts that decide the column and band force kernels' design
+"""The counts that decide the column and band kernels' design
 (``cell_filter.cell_pass_counts``) on small cell layouts: each layout 3D
 periodic, 3D open and 2D; a lattice so dense (cutoff 4.5 spacings) that
 the force kernel's pair queue flushes many times inside one neighbour
@@ -17,9 +17,14 @@ a sum; with the filter radius cut by 3% the first case fails); the pair
 queue's body passes never exceed the lockstep scan's, nor those the box
 survivors; and the windows hold every pair within the cutoff: the live
 pairs equal a brute-force all-pairs count in numpy (minimum image) on the
-same positions. The layouts themselves are held exactly against the JAX
-package in tests/test_torch_cellgrid.py and
-tests/test_torch_band_layout.py."""
+same positions. The rho and colour-gradient sweep
+(``csrc/cell_sweep.cuh``) is held the same way on the band layouts, a
+column grid, a vapour sphere of type 2 in type 1 and a lattice of one
+colour: its filter keeps every live pair and, for the colour gradient,
+its colour gate every pair of unlike colour (with the gate inverted the
+sphere case fails), and the unlike pairs equal their brute-force count.
+The layouts themselves are held exactly against the JAX package in
+tests/test_torch_cellgrid.py and tests/test_torch_band_layout.py."""
 
 import numpy as np
 import pytest
@@ -27,7 +32,7 @@ import torch
 
 from tpusph_torch import grid
 from tpusph_torch.ops import band_pair, cell_filter, pallas_pair
-from tpusph_torch.ops.rows import RTYPE
+from tpusph_torch.ops.rows import RTYPE, TABLES_1D
 from tpusph_torch.params import PairTables
 from tpusph_torch.state import Box, state_from_arrays
 
@@ -43,10 +48,14 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def lattice(dim, shape, periodic, hfac, seed, dx=0.5, dense_cell=0):
+def lattice(dim, shape, periodic, hfac, seed, dx=0.5, dense_cell=0,
+            types="random"):
     """A jittered two-type lattice of ``shape`` sites, cutoffs ``hfac``
     spacings, and ``dense_cell`` more particles packed into a cube of side
-    1.2 inside one cell: (state, box, cut2, cutoff)."""
+    1.2 inside one cell; ``types`` "random" (1 or 2 at random), "sphere"
+    (type 2 within L/5 of the box centre, the bench's vapour sphere, type
+    1 elsewhere) or "one" (all type 1): (state, box, tables, cutoff), the
+    tables on the CPU (``DeviceTables``)."""
     rng = np.random.default_rng(seed)
     ax = [np.arange(m) * dx for m in shape]
     pts = np.stack(np.meshgrid(*ax, indexing="ij"), -1).reshape(-1, dim)
@@ -61,8 +70,14 @@ def lattice(dim, shape, periodic, hfac, seed, dx=0.5, dense_cell=0):
     if dim == 2:
         pts[:, 2] = 0.0
     n = len(pts)
-    st = state_from_arrays(pts.astype(np.float32), rng.integers(1, 3, n),
-                           np.full(n, 0.1),
+    typ = rng.integers(1, 3, n)
+    if types == "sphere":
+        centre = np.asarray(L[:dim]) / 2
+        typ = np.where(np.linalg.norm(pts[:, :dim] - centre, axis=1)
+                       < min(L[:dim]) / 5, 2, 1)
+    elif types == "one":
+        typ = np.ones(n, np.int64)
+    st = state_from_arrays(pts.astype(np.float32), typ, np.full(n, 0.1),
                            capacity=((n + 127) // 128) * 128, device="cpu")
     box = Box.create([0, 0, 0], L[:3], periodic, device="cpu")
     tables = PairTables.zeros(2)
@@ -70,7 +85,8 @@ def lattice(dim, shape, periodic, hfac, seed, dx=0.5, dense_cell=0):
     for i, j in ((1, 2), (1, 1), (2, 2)):
         tables.set_taitwater(i, j, rho0=1.0, c0=6.0, viscosity=0.4, h=h)
         tables.set_rhosum(i, j, h=h)
-    return st, box, tables.stacked("cpu").cutmax2["force"], tables.max_cut()
+    tables.set_surfacetension(1, 2, sigma=0.8, h=h)
+    return st, box, tables.stacked("cpu"), tables.max_cut()
 
 
 def column_layout(st, box, cutoff, dim, cap=None):
@@ -119,9 +135,10 @@ def two_subcell_warps(fld, geom):
 ])
 def test_filter_is_conservative_and_windows_hold_every_pair(
         kind, dim, shape, periodic, hfac, dense_cell):
-    st, box, cut2, cutoff = lattice(dim, shape, periodic, hfac,
+    st, box, tabs, cutoff = lattice(dim, shape, periodic, hfac,
                                     seed=dim + len(shape),
                                     dense_cell=dense_cell)
+    cut2 = tabs.cutmax2["force"]
     if kind == "column":
         # one cell of 507 rows: cap 510, four chunks of 128 slots a cell
         fld, lay, x = column_layout(st, box, cutoff, dim,
@@ -162,3 +179,74 @@ def test_band_cases_cover_c_not_a_multiple_of_32():
         odd.append(lay.c % 32 != 0)
         two.append(two_subcell_warps(fld, lay))
     assert all(odd) and max(two) > 0, (odd, two)
+
+
+def brute_force_unlike_pairs(x, colour, box, cut2):
+    """Ordered pairs (i != j) of the positions ``x`` with 1e-12 < rsq <
+    cut2 (minimum image, float64) whose colours differ."""
+    x = x.astype(np.float64)
+    L = np.asarray(box.hi, np.float64) - np.asarray(box.lo, np.float64)
+    per = np.asarray(box.periodic)
+    total = 0
+    for a in range(0, len(x), 512):
+        d = x[a:a + 512, None, :] - x[None, :, :]
+        d = np.where(per, d - L * np.round(d / L), d)
+        rsq = (d * d).sum(-1)
+        unlike = colour[a:a + 512, None] != colour[None, :]
+        total += int(((rsq > 1e-12) & (rsq < cut2) & unlike).sum())
+    return total
+
+
+SWEEP_CASES = [
+    ("band", 3, (12, 12, 12), (True, True, True), 2.2, "random"),
+    ("band", 3, (12, 12, 12), (False, False, False), 2.2, "random"),
+    ("band", 2, (40, 40), (True, True, False), 2.2, "random"),
+    ("band", 3, (20, 20, 12), (True, True, False), 4.5, "random"),
+    ("band", 3, (16, 16, 16), (True, True, True), 2.2, "sphere"),
+    ("band", 3, (12, 12, 12), (True, True, True), 2.2, "one"),
+    ("column", 3, (12, 12, 12), (True, True, True), 2.2, "random"),
+]
+
+
+@pytest.mark.parametrize("sweep", ["rho", "cgrad"])
+@pytest.mark.parametrize("kind,dim,shape,periodic,hfac,types", SWEEP_CASES)
+def test_sweep_filter_is_conservative_and_gated(kind, dim, shape, periodic,
+                                                hfac, types, sweep):
+    """The rho / colour-gradient sweep's filter (csrc/cell_sweep.cuh):
+    every live pair survives the boxes, and for the colour gradient every
+    live pair of unlike colour also survives the block's and the warp's
+    colour gate; the windows' pairs (and their unlike pairs) are exactly
+    the brute-force pairs. The vapour sphere leaves blocks with no unlike
+    row within reach, which the gate drops; one colour drops every
+    block."""
+    st, box, tabs, cutoff = lattice(dim, shape, periodic, hfac,
+                                    seed=dim + len(shape) + 5, types=types)
+    if kind == "column":
+        fld, lay, x = column_layout(st, box, cutoff, dim)
+    else:
+        fld, lay, x = band_layout(st, box, cutoff, dim)
+    cut2 = tabs.cutmax2[sweep]
+    colors = tabs.tab1[TABLES_1D.index("color")]
+    c = cell_filter.cell_pass_counts(fld, lay, cut2, sweep, colors)
+    assert c["live_outside_box"] == 0, c
+    assert c["body_passes"] <= c["box_survivors"], c
+    wpc = cell_filter.block_threads(cell_filter.as_band(lay)) // 32
+    assert c["box_survivors"] <= wpc * c["staged_with_terms"], c
+    assert c["staged_with_terms"] <= c["staged_rows"], c
+    assert c["live_pairs"] == brute_force_pairs(x, box, cut2)
+    alive = fld[RTYPE] > 0.5
+    colour = colors[fld[RTYPE][alive].long()].numpy()
+    assert x.shape[0] == colour.shape[0]
+    if sweep == "rho":
+        assert c["gate_exits"] == 0 and c["needed_pairs"] == c["live_pairs"]
+        return
+    assert c["needed_pairs"] == brute_force_unlike_pairs(x, colour, box,
+                                                         cut2)
+    if types == "one":
+        # no pair of unlike colour: every block exits on the gate
+        assert c["gate_exits"] == c["blocks_alive"] > 0, c
+        assert c["staged_rows"] == c["box_survivors"] == 0, c
+    elif types == "sphere":
+        # blocks far from the sphere exit, those near it sweep
+        assert 0 < c["gate_exits"] < c["blocks_alive"], c
+        assert c["needed_pairs"] > 0, c

@@ -13,13 +13,16 @@ column axis is periodic. The compacted force sweep keeps exactly the plain
 version's survivors (its overflow count equal on every slot, also with P
 below the candidate union) and matches the strip force kernel where
 nothing overflows. The column and band force kernels (the queued sweep
-of tpusph_torch/csrc/cell_force.cuh) equal their one-pass check kernels
+of tpusph_torch/csrc/cell_sweep.cuh) equal their one-pass check kernels
 bit for bit on every alive row, on layouts that reach their control flow:
 a cap not a multiple of 32, one dense cell among sparse ones (chunks that
 exit, windows staged in two rounds), 2D, a periodic column of one cell,
-open edges, band c 80 and c 128, warps of one alive row. A CUDA tensor
-never takes a plain version: every wrapper call moves its launch
-counter.
+open edges, band c 80 and c 128, warps of one alive row. The band rho
+and colour-gradient kernels (the same kernel's short bodies) equal
+their one-pass check kernels bit for bit on every alive row on the same
+band cases, 2D, a vapour sphere and a lattice of one colour (the colour
+gate). A CUDA tensor never takes a plain version: every wrapper call
+moves its launch counter.
 
 Needs an NVIDIA GPU and nvcc (marker ``cuda``); elsewhere every test skips.
 tests/conftest.py imports jax, which this file does not need, so on a
@@ -42,7 +45,7 @@ from tpusph_torch.ops import (band_pair, cell_filter, mxu_compact,
 from tpusph_torch.ops.band_pair import pack_fields
 from tpusph_torch.ops.rows import (
     OCGX, OCGY, ODE, ODRHO, OFX, OFY, OFZ, ORHO, RCGX, RCGZ, RM, RRHO, RSLOT,
-    RTYPE)
+    RTYPE, TABLES_1D)
 from tpusph_torch.params import PairTables, PhysicsSpec
 from tpusph_torch.state import Box, state_from_arrays
 
@@ -81,14 +84,17 @@ def device():
 
 
 def lattice(dim, nside, periodic, seed, device, dx=0.5, jitter=True,
-            uniform=False, hfac=2.2, shape=None, dense_cell=0):
+            uniform=False, hfac=2.2, shape=None, dense_cell=0,
+            types="random"):
     """A jittered (or exact) two-type lattice with random v, rho, e (the
     JAX tests' lattice_system, built here with numpy alone); ``uniform``
     makes every pair table uniform over the two types with one cutoff.
     Cutoffs are ``hfac`` spacings; ``shape`` (sites per axis) and a tuple
     ``periodic`` (per axis) override the cube of ``nside``; ``dense_cell``
     more particles are packed into a cube of side 1.2 about (2.25, 2.25,
-    2.25), inside one cell of the 12^3 lattice's grid."""
+    2.25), inside one cell of the 12^3 lattice's grid. ``types``: "random"
+    (1 or 2 at random), "sphere" (type 2 within L/5 of the box centre,
+    the bench's vapour sphere, type 1 elsewhere) or "one" (all type 1)."""
     rng = np.random.default_rng(seed)
     shape = shape or (nside,) * dim
     ax = [np.arange(m) * dx for m in shape]
@@ -105,8 +111,15 @@ def lattice(dim, nside, periodic, seed, device, dx=0.5, jitter=True,
     v = rng.normal(0, 0.1, (n, 3)).astype(np.float32)
     if dim == 2:
         v[:, 2] = 0.0
+    typ = rng.integers(1, 3, n)
+    if types == "sphere":
+        side = np.asarray(shape) * dx
+        typ = np.where(np.linalg.norm(pts[:, :dim] - side / 2, axis=1)
+                       < side.min() / 5, 2, 1)
+    elif types == "one":
+        typ = np.ones(n, np.int64)
     st = state_from_arrays(
-        pts.astype(np.float32), rng.integers(1, 3, n), np.full(n, 0.1), v=v,
+        pts.astype(np.float32), typ, np.full(n, 0.1), v=v,
         rho=rng.uniform(0.9, 1.2, n), e=rng.uniform(0.5, 1.5, n),
         capacity=((n + 127) // 128) * 128, device=device)
     L = [m * dx for m in shape] + [1.0]
@@ -582,11 +595,15 @@ def band_case(case, device):
     geometry is the chooser's split of a 16^3 lattice with cutoff 3
     spacings (cells of 4 x 4 sites) into sub-cells one cell tall (G 2, k
     1, ~64 particles a sub-cell) or half a cell (G 4, k 2, ~32), with the
-    slots per sub-cell c set as the 1M bench's are (80 and 128)."""
+    slots per sub-cell c set as the 1M bench's are (80 and 128); the
+    types at random, but a vapour sphere ("sphere") or one type ("one")."""
     periodic = case != "open_c128"
-    st, box, tables = lattice(3, 16, periodic, 61, device, hfac=3.0)
+    types = {"sphere": "sphere", "one": "one"}.get(case, "random")
+    st, box, tables = lattice(3, 16, periodic, 61, device, hfac=3.0,
+                              types=types)
     c, G, p = {"c80": (80, 2, 1), "c128": (128, 4, 2),
-               "open_c128": (128, 4, 2), "one_alive": (80, 2, 1)}[case]
+               "open_c128": (128, 4, 2), "one_alive": (80, 2, 1),
+               "sphere": (128, 4, 2), "one": (80, 2, 1)}[case]
     side = tables.max_cut() + 0.2
     L = 8.0
     nsub = int(L * p // side)
@@ -629,6 +646,60 @@ def test_band_force_matches_one_pass_scan(device, case, name):
         assert keep_one_alive(fld, subs, band_pair.dead_lane_fill) >= 4
     force_matches_plain_and_scan("band", fld, tables.stacked(device), geom,
                                  PhysicsSpec(dim=3, **SPECS[name]))
+
+
+@pytest.mark.parametrize("case,name", [
+    ("c80", "bench"), ("c80", "idealgas_cubic"), ("c128", "bench"),
+    ("c128", "heatpc_wendland_st"), ("open_c128", "bench"),
+    ("one_alive", "bench"), ("2d", "bench"), ("sphere", "bench"),
+    ("one", "bench"),
+])
+def test_band_rho_cgrad_match_one_pass_scans(device, case, name):
+    """The band rho and colour-gradient kernels (the box filter and, for
+    the colour gradient, the colour gate of csrc/cell_sweep.cuh) within
+    their bars of the plain versions and bit for bit equal to the one-pass
+    check kernels on every alive row: c 80 (not a multiple of 32: warps
+    across two sub-cells), c 128, open edges, warps of one alive row, 2D,
+    a vapour sphere (blocks near it sweep, the gate drops the rest) and
+    one colour (every block exits on the gate). Rho is patched into the
+    fields before the colour gradient, as the force stage does."""
+    if case == "2d":
+        backend, st, aux, tables = band_layout(2, True, 61, device)
+        fld, geom = pack_fields(st), backend.geom
+    else:
+        fld, geom, tables = band_case(case, device)
+    if case == "one_alive":
+        subs = torch.arange(geom.total_cells, device=device) * geom.c
+        assert keep_one_alive(fld, subs, band_pair.dead_lane_fill) >= 4
+    spec = PhysicsSpec(dim=geom.dim, **SPECS[name])
+    tabs = tables.stacked(device)
+    alive = fld[RTYPE] > 0.5
+    for sweep in ("rho", "cgrad"):
+        kern, scan = band_pair.KERNELS[sweep], band_pair.SCANS[sweep]
+        n0, s0 = kern.launches, scan.launches
+        out_k = kern(fld, tabs, geom, spec)
+        out_s = scan(fld, tabs, geom, spec)
+        torch.cuda.synchronize()
+        assert (kern.launches, scan.launches) == (n0 + 1, s0 + 1)
+        out_p = band_pair.plain_band_sweep(sweep, fld, tabs, geom, spec)
+        check_rows(sweep, out_k, out_p, alive)
+        rows = list(ROWS[sweep])
+        bits_k = out_k[rows][:, alive].view(torch.int32)
+        bits_s = out_s[rows][:, alive].view(torch.int32)
+        differ = int((bits_k != bits_s).any(0).sum())
+        assert differ == 0, (sweep, differ)
+        assert float(out_k[:, ~alive].abs().max()) == 0.0
+        counts = cell_filter.cell_pass_counts(
+            fld, geom, tabs.cutmax2[sweep], sweep,
+            tabs.tab1[TABLES_1D.index("color")])
+        assert counts["live_outside_box"] == 0, counts
+        if sweep == "rho":
+            total = out_p[ORHO] * fld[RM] if spec.rhosum_nd else out_p[ORHO]
+            fld[RRHO] = torch.where(alive, total, fld[RRHO])
+    if case == "one":
+        assert counts["gate_exits"] == counts["blocks_alive"], counts
+    elif case == "sphere":
+        assert 0 < counts["needed_pairs"] < counts["live_pairs"], counts
 
 
 def compact_inputs(name, dim, periodic, seed, device):

@@ -18,15 +18,19 @@
 // meanings; the wrapper zeroes it, and a group without an alive slot writes
 // nothing (the reference's pl.when at band_pair.py:533).
 //
-// Work split. Force: cell_force.cuh's queued sweep (a block per group and
-// chunk of up to 128 slots; per neighbour column the group's G + 2k staged
-// sub-cells to their live reach, each warp's box filter, exact tests and
-// pair queue; a warp whose lanes lie in two sub-cells shares their group's
-// window, so it needs no union). Rho and colour gradient: the one-pass scan
-// below, band_sweep_kernel, one block per (column, group) on a (ncols,
-// ngroups) grid, one thread per i slot of the group (blockDim = G*c
-// rounded up to a warp). For each of the 9 (3D) / 3 (2D) neighbour columns
-// the block stages the group's window in shared memory: the rows
+// Work split. All three sweeps: cell_sweep.cuh's filtered sweep (a block
+// per group and chunk of up to 128 slots; per neighbour column the group's
+// G + 2k staged sub-cells to their live reach, each warp's box filter and
+// exact tests; a warp whose lanes lie in two sub-cells shares their
+// group's window, so it needs no union); force then runs the warp pair
+// queue, rho and the colour gradient add each live pair at once, and the
+// colour gradient stages only the rows of a colour unlike one of the
+// block's (and warp's) alive rows. The one-pass scan below,
+// band_sweep_kernel, serves only the check kernels
+// band_{rho,cgrad,force}_scan_launch: one block per (column, group) on a
+// (ncols, ngroups) grid, one thread per i slot of the group (blockDim =
+// G*c rounded up to a warp). For each of the 9 (3D) / 3 (2D) neighbour
+// columns the block stages the group's window in shared memory: the rows
 // [(g*G - k) * c, (g*G + G + k) * c) of that column, i.e. the group's G
 // sub-cells and k margin sub-cells on each side, with the image shift
 // added to the positions: the plane shift of a periodic wrap across x (and
@@ -39,9 +43,9 @@
 // pre-gathers these windows into a band array because Mosaic cannot slice
 // lanes dynamically; here each block reads them straight from fld. Every
 // thread then scans the staged rows for its own slot, each staged sub-cell
-// only as far as its last live rank. Its force instantiation is kept as
-// band_force_scan_launch, the check the queued force is held to bit for
-// bit (chip_smoke.py, the card tests); no path of the port launches it.
+// only as far as its last live rank. The filtered sweeps are held to it
+// bit for bit (chip_smoke.py, the card tests); no path of the port
+// launches it.
 //
 // Pair mask: type_i > 0.5, type_j > 0.5, rsq > 1e-12; rows that are no
 // candidate are staged at a far position, so one rsq compare rejects them.
@@ -50,23 +54,22 @@
 // its kernel always runs the capillary terms), as in column_sweeps.cu. The
 // rho sweep folds the self term in (write_out).
 //
-// What bounds it: instruction throughput. Each i row has 9*(G+2k)
+// What bounds them: instruction throughput. Each i row has 9*(G+2k)
 // sub-cells of candidates (~3,500 live-reach rows on the 1M bench's
 // lattice at G 4, c 128, k 1, ~65 particles a sub-cell), of which ~110 lie
 // within the cutoff. The one-pass scan tests every candidate in every lane
 // and runs the pair body in lockstep wherever any lane of the warp has a
 // live pair, in blocks as wide as the group (at c 128 about half of a
-// sub-cell's warps hold no alive row). It rejects a candidate after three
-// shared loads and one compare against the sweep's largest squared cutoff,
-// before any table lookup; per-j terms are computed once while staging;
-// the tables sit in shared memory. The queued force runs the body 32 live
-// pairs a pass instead, in blocks cut to the live ranks, and a warp's box
-// drops the staged sub-cells beyond its own +-k (cell_force.cuh). Built
-// without fast-math: IEEE divides and square roots.
+// sub-cell's warps hold no alive row). The filtered sweeps run in blocks
+// cut to the live ranks, and a warp's box drops the staged sub-cells
+// beyond its own +-k before the exact tests; the queued force then runs
+// the body 32 live pairs a pass, the colour gradient only on blocks near
+// an interface (cell_sweep.cuh). Built without fast-math: IEEE divides
+// and square roots.
 
 #include <cuda_runtime.h>
 
-#include "cell_force.cuh"
+#include "cell_sweep.cuh"
 #include "sph_pair.cuh"
 
 namespace {
@@ -85,6 +88,7 @@ struct BandGeo {
   float lx, ly, lcol;         // box lengths: plane x, plane y, column axis
 };
 
+// The one-pass scan: only the check kernels band_*_scan_launch run it.
 template <int SWEEP>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 band_sweep_kernel(const float* __restrict__ fld,
@@ -222,25 +226,40 @@ int launch(const float* fld, const float* tab2, const float* tab1,
   fld, tab2, tab1, out, n_slots, ncx, ncy, nsub_pad, G, c, k, dim, per_x,   \
       per_y, per_col, kern, flags, T1, lx, ly, lcol, cutmax2, stream
 
-extern "C" int band_rho_launch(BAND_ARGS) { return launch<SW_RHO>(BAND_PASS); }
-
-extern "C" int band_cgrad_launch(BAND_ARGS) {
-  return launch<SW_CGRAD>(BAND_PASS);
-}
-
-// the queued force sweep (cell_force.cuh)
-extern "C" int band_force_launch(BAND_ARGS) {
-  // the one-pass launcher's limits (launch_cell_force checks the rest)
+// the filtered sweeps (cell_sweep.cuh) under the one-pass launcher's
+// limits (launch_cell_sweep checks the rest)
+template <int SWEEP>
+int launch_filtered(BAND_ARGS) {
   if (G * c > kMaxThreads || (per_col && G + 2 * k > nsub_pad)) {
     return (int)cudaErrorInvalidConfiguration;
   }
   const CellGeo g{n_slots, ncx, ncy, nsub_pad, G, c, k, dim, per_x, per_y,
                   per_col, lx, ly, lcol};
-  return launch_cell_force<L_BAND>(g, Phys{dim, kern, flags, T1, cutmax2},
-                                   fld, tab2, tab1, out, stream);
+  return launch_cell_sweep<SWEEP, L_BAND>(
+      g, Phys{dim, kern, flags, T1, cutmax2}, fld, tab2, tab1, out, stream);
 }
 
-// the one-pass force sweep: the check the queued one is held to
+extern "C" int band_rho_launch(BAND_ARGS) {
+  return launch_filtered<SW_RHO>(BAND_PASS);
+}
+
+extern "C" int band_cgrad_launch(BAND_ARGS) {
+  return launch_filtered<SW_CGRAD>(BAND_PASS);
+}
+
+extern "C" int band_force_launch(BAND_ARGS) {
+  return launch_filtered<SW_FORCE>(BAND_PASS);
+}
+
+// the one-pass scans: the checks the filtered sweeps are held to
+extern "C" int band_rho_scan_launch(BAND_ARGS) {
+  return launch<SW_RHO>(BAND_PASS);
+}
+
+extern "C" int band_cgrad_scan_launch(BAND_ARGS) {
+  return launch<SW_CGRAD>(BAND_PASS);
+}
+
 extern "C" int band_force_scan_launch(BAND_ARGS) {
   return launch<SW_FORCE>(BAND_PASS);
 }

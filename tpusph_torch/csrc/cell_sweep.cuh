@@ -1,6 +1,7 @@
-// The force sweep over the cell layouts, filter then compute: one kernel
-// for the column kernel's cell grid (column_sweeps.cu) and the band's
-// slot-resident sub-cells (band_sweeps.cu).
+// The rho, colour-gradient and force sweeps over the cell layouts, filter
+// then compute: one kernel for the column kernel's cell grid
+// (column_sweeps.cu) and the band's slot-resident sub-cells
+// (band_sweeps.cu).
 //
 // The two layouts are one shape. fld is the (16, n_slots) float32 field
 // matrix with slot = (column * nsub_pad + sub) * c + rank: columns tile the
@@ -24,30 +25,50 @@
 // live ranks, not of the whole cap (the one-pass scan's blocks span the
 // group: at cap 280 and ~64 rows a cell, 7 of its 9 warps hold no alive
 // row). For each neighbour column the block finds the live reach of each
-// staged sub-cell (one past its last alive rank), and stages the staged
-// sub-cells' rows below their reach, in (sub-cell, rank) order, at most
-// `ld` rows a round (kStageRows: the column's windows of ~200 live rows
-// take one round at 1M, the band's of ~390 two), with the image shift
-// added to the positions and the per-j terms computed once. A row outside the block's box (the union of its
-// warps' WarpBox, which keeps every row any warp box keeps) is staged as no
-// candidate without its terms. Each warp then runs warp_filter.cuh's
-// filter_window over the round: its box test, each lane's exact test of
-// the survivors, the warp pair queue, flushed before the next round is
-// staged. A row sums its pairs in (neighbour column, sub-cell, rank)
-// order, the order of the one-pass scan (column_sweeps.cu /
-// band_sweeps.cu's *_sweep_kernel, kept as the check kernel
-// *_force_scan_launch), with the same pair arithmetic: the sums are the
-// one-pass scan's, bit for bit.
+// staged sub-cell (one past its last candidate rank), and stages the
+// staged sub-cells' rows below their reach, in (sub-cell, rank) order, at
+// most `ld` rows a round, with the image shift added to the positions and
+// the per-j terms computed once. A row outside the block's box (the union
+// of its warps' WarpBox, which keeps every row any warp box keeps) is
+// staged as no candidate without its terms. Each warp then runs
+// warp_filter.cuh's filter_window over the round: its box test, then each
+// lane's exact test of the survivors; force queues its live pairs in the
+// warp pair queue, flushed before the next round is staged, while rho and
+// the colour gradient add each live pair at once (their body is a few
+// operations).
+//
+// The colour gate (colour gradient only). A pair of one colour adds
+// exactly zero (pair_body returns first), and at 1M after the band path
+// 0.56% of the live pairs are of unlike types (a thin shell about the
+// vapour sphere). The block forms the set of its alive rows' types and the
+// types whose colour differs from one of theirs (unlike_types); a j row of
+// another type is no candidate: the live reach counts only candidates, so
+// a neighbour column with none is not staged, and a block with none in any
+// neighbour column exits without writing (the wrapper zeroes `out`; the
+// one-pass scan writes +0.0 on such rows). Each warp's box test applies
+// the same gate with its own types.
+//
+// Bits. A row sums its pairs in (neighbour column, sub-cell, rank) order,
+// the order of the one-pass scan (column_sweeps.cu / band_sweeps.cu's
+// *_sweep_kernel, kept as the check kernels *_scan_launch), with the same
+// pair arithmetic (a queued pair's terms are pair_body's into zeros, added
+// by its owner in queue order): the sums are the one-pass scan's, bit for
+// bit.
 //
 // What bounds it: instruction throughput and latency of the live pairs'
-// body, run 32 pairs a pass; then the box filter's exact tests (a warp of
-// rows spread over a whole cell keeps 410-620 rows at 1M, about a strip
-// warp's) and the staging, which each chunk repeats for its group's
-// window (read from L2). The body is latency-bound: resident warps
-// decide its speed, hence the small staging budget and the five-block
-// build (88 registers, no spill) or the six-block one (80, a few bytes
-// spilled), picked by the occupancy API (warp_filter.cuh, pick_build).
-// Built without fast-math: IEEE divides and square roots.
+// body (force: 32 pairs a pass; rho and cgrad: in lockstep where any lane
+// has a live pair), then the box filter's exact tests (a warp of rows
+// spread over a whole cell keeps 410-620 rows at 1M) and the staging,
+// which each chunk repeats for its group's window (read from L2); most of
+// the gated colour gradient's blocks read only their windows' types.
+// Resident warps decide the speed. Force stages 18 floats a row and its
+// queue: 256 rows a round (~36 KB a block) and the five- or six-block
+// build (88 or 80 registers); rho and cgrad stage 5 floats and no queue:
+// 512 rows (~11 KB, a band window in one round) and the twelve- or
+// sixteen-block build (40 or 32 registers). The occupancy API picks the
+// build (warp_filter.cuh, pick_build); other budgets and builds measured
+// slower on the 1M bench layouts (PERF.md, Findings). Built without
+// fast-math: IEEE divides and square roots.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -58,14 +79,19 @@
 namespace sph {
 
 constexpr int kCellThreads = 128;    // i slots per block (a chunk)
-// Staged rows per round, at most: 256 keep a block's shared memory near
-// 36 KB, so six blocks of the six-block build (80 registers) fit an SM;
-// 512 allowed four (120 registers) and 384 five (88), each slower on
-// every 1M bench layout (PERF.md, Findings). A band window of ~390 live
-// rows then takes two rounds.
-constexpr int kStageRows = 256;
 constexpr int kMaxStagedCells = 96;  // staged sub-cells G + 2k
 enum { L_COLUMN = 0, L_BAND = 1 };
+
+// Per sweep: staged rows per round, at most, and the two builds (blocks an
+// SM) the occupancy API picks from.
+template <int SWEEP>
+struct CellBuild {
+  static constexpr int rows = 512, fewer = 12, more = 16;
+};
+template <>
+struct CellBuild<SW_FORCE> {
+  static constexpr int rows = 256, fewer = 5, more = 6;
+};
 
 struct CellGeo {
   int n_slots, ncx, ncy, nsub_pad, G, c, k, dim;
@@ -86,22 +112,26 @@ __device__ __forceinline__ bool wrap_sub(const CellGeo& g, int& sub,
   return true;
 }
 
-template <int LAYOUT, int MIN_BLOCKS>
+template <int SWEEP, int LAYOUT, int MIN_BLOCKS>
 __global__ void __launch_bounds__(kCellThreads, MIN_BLOCKS)
-cell_force_kernel(const float* __restrict__ fld,
+cell_sweep_kernel(const float* __restrict__ fld,
                   const float* __restrict__ tab2g,
                   const float* __restrict__ tab1g, CellGeo g, Phys p,
                   int ld, float* __restrict__ out) {
+  constexpr bool kQueued = SWEEP == SW_FORCE;
+  constexpr bool kGate = SWEEP == SW_CGRAD;
   extern __shared__ float smem[];
   // per staged sub-cell its live reach, and their running sum (a round's
   // rows are the (sub-cell, rank) sequence's [base, base + ld))
   __shared__ int reach[kMaxStagedCells];
   __shared__ int off[kMaxStagedCells + 1];
   __shared__ float wbox[kCellThreads / 32][6];
+  __shared__ unsigned wtypes[kCellThreads / 32];
   __shared__ WarpBox bbox;
+  __shared__ unsigned bgate;  // the block's colour gate
   const Tables tb = load_tables(smem, tab2g, tab1g, p);
-  float* win = smem + table_floats(p.T1);  // [SF_NF][ld]
-  float* sir = win + SF_NF * ld;           // queue_floats(blockDim.x)
+  float* win = smem + table_floats(p.T1);       // [NumFields<SWEEP>][ld]
+  float* sir = win + NumFields<SWEEP>::v * ld;  // force: queue_floats
 
   const int n = g.n_slots;
   const int col = blockIdx.x;
@@ -119,13 +149,23 @@ cell_force_kernel(const float* __restrict__ fld,
   const unsigned wmask = 0xffffffffu;
   IRow ir{};
   if (alive) {
-    ir = load_i<SW_FORCE>(fld, n, i, tb, p, (p.flags & FL_ST) != 0);
+    ir = load_i<SWEEP>(fld, n, i, tb, p, (p.flags & FL_ST) != 0);
   }
-  put_irow(sir, blockDim.x, threadIdx.x, ir);
-  const WarpQueue wq = warp_queue(sir, blockDim.x, warp, lane);
+  WarpQueue wq{};
+  if (kQueued) {
+    put_irow(sir, blockDim.x, threadIdx.x, ir);
+    wq = warp_queue(sir, blockDim.x, warp, lane);
+  }
   const bool warp_alive = __any_sync(wmask, alive);
   const float rc = sqrtf(p.cutmax2);
   const WarpBox bx = warp_box(ir, alive, wmask, rc);
+  unsigned wgate = ~0u;
+  if (kGate) {
+    const unsigned wset =
+        __reduce_or_sync(wmask, alive ? type_bit(ir.t) : 0u);
+    wgate = unlike_types(wset, tb);
+    if (lane == 0) wtypes[warp] = wset;
+  }
   if (lane == 0) {
     for (int a = 0; a < 3; ++a) {
       wbox[warp][a] = bx.lo[a];
@@ -134,19 +174,26 @@ cell_force_kernel(const float* __restrict__ fld,
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    // the block's box: the union of its warps' (a dead warp's is empty);
-    // the first neighbour column's barrier publishes it
+    // the block's box: the union of its warps' (a dead warp's is empty),
+    // and its colour gate from the union of their types; the first
+    // neighbour column's barrier publishes both
+    unsigned bset = 0u;
     for (int a = 0; a < 3; ++a) {
       bbox.lo[a] = kBoxFar;
       bbox.hi[a] = -kBoxFar;
-      for (int w = 0; w < (int)blockDim.x / 32; ++w) {
+    }
+    for (int w = 0; w < (int)blockDim.x / 32; ++w) {
+      for (int a = 0; a < 3; ++a) {
         bbox.lo[a] = fminf(bbox.lo[a], wbox[w][a]);
         bbox.hi[a] = fmaxf(bbox.hi[a], wbox[w][3 + a]);
       }
+      if (kGate) bset |= wtypes[w];
     }
     bbox.set_radius(rc);
+    if (kGate) bgate = unlike_types(bset, tb);
   }
   float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  bool staged = false;  // any candidate row in any neighbour column
 
   const bool dim3 = g.dim == 3;
   const int cx = dim3 ? col / g.ncy : col;
@@ -174,15 +221,19 @@ cell_force_kernel(const float* __restrict__ fld,
       __syncthreads();  // the previous column's readers are done
       for (int d = threadIdx.x; d < nsw; d += blockDim.x) reach[d] = 0;
       __syncthreads();
-      // live reach: per warp and staged sub-cell, its highest alive lane
+      // live reach: per warp and staged sub-cell, its highest candidate
+      // lane (a candidate: alive and, for cgrad, kept by the block's gate)
       for (int w0 = 0; w0 < nsw * g.c; w0 += blockDim.x) {
         const int w = w0 + threadIdx.x;
         const int d = w / g.c;
         const int r = w - d * g.c;
         int sub = sub0 + d;
         float sz;
-        const bool live = w < nsw * g.c && wrap_sub(g, sub, sz) &&
-            fld[RTYPE * n + jbase + sub * g.c + r] > 0.5f;
+        bool live = w < nsw * g.c && wrap_sub(g, sub, sz);
+        if (live) {
+          const float tj = fld[RTYPE * n + jbase + sub * g.c + r];
+          live = tj > 0.5f && (!kGate || gate_keeps(bgate, tj));
+        }
         const unsigned same = __match_any_sync(wmask, w < nsw * g.c ? d : -1);
         const unsigned hit = __ballot_sync(wmask, live) & same;
         if (live && lane == 31 - __clz(hit)) atomicMax(&reach[d], r + 1);
@@ -194,6 +245,7 @@ cell_force_kernel(const float* __restrict__ fld,
       }
       __syncthreads();
       const int total = off[nsw];
+      staged = staged || total > 0;
       for (int base = 0; base < total; base += ld) {
         const int rows = min(ld, total - base);
         if (base > 0) __syncthreads();  // the previous round's readers
@@ -211,31 +263,36 @@ cell_force_kernel(const float* __restrict__ fld,
           const int j = jbase + sub * g.c + (pos - off[lo]);
           // 3D: the column axis is z; 2D: it is y, and z is not shifted
           const float shy = dim3 ? sy : sz, shz = dim3 ? sz : 0.f;
-          const bool live = fld[RTYPE * n + j] > 0.5f &&
+          const float tj = fld[RTYPE * n + j];
+          const bool live = tj > 0.5f &&
+              (!kGate || gate_keeps(bgate, tj)) &&
               bbox.holds(fld[RX * n + j] + sx, fld[RY * n + j] + shy,
                          fld[RZ * n + j] + shz);
-          stage_j<SW_FORCE>(win, ld, q, fld, n, j, sx, shy, shz, live, tb,
-                            p);
+          stage_j<SWEEP>(win, ld, q, fld, n, j, sx, shy, shz, live, tb, p);
         }
         __syncthreads();
         if (warp_alive) {
-          filter_window<SW_FORCE>(win, ld, 0, rows, true, 0, rows, bx, ir,
-                                  alive, wmask, lane, 32, wq, sir, warp * 32,
-                                  tb, p, acc);
+          filter_window<SWEEP>(win, ld, 0, rows, true, 0, rows, bx, ir,
+                               alive, wmask, lane, 32, wq, sir, warp * 32,
+                               tb, p, acc, wgate);
         }
       }
     }
   }
-  if (s < gc) write_out<SW_FORCE>(out, n, i, alive, ir, tb, p, acc);
+  // a gated block with no candidate anywhere: its rows stay the wrapper's
+  // zeros (rho and force always stage the block's own rows)
+  if (!staged) return;
+  if (s < gc) write_out<SWEEP>(out, n, i, alive, ir, tb, p, acc);
 }
 
-// Launches the queued force sweep on a cell layout; returns the CUDA error.
-template <int LAYOUT>
-int launch_cell_force(const CellGeo& g, const Phys& p, const float* fld,
+// Launches one filtered sweep on a cell layout; returns the CUDA error.
+template <int SWEEP, int LAYOUT>
+int launch_cell_sweep(const CellGeo& g, const Phys& p, const float* fld,
                       const float* tab2, const float* tab1, float* out,
                       void* stream) {
   using Fn = void (*)(const float*, const float*, const float*, CellGeo, Phys,
                       int, float*);
+  using B = CellBuild<SWEEP>;
   const int gc = g.G * g.c;
   const int nsw = g.G + 2 * g.k;
   const long long ncols = g.dim == 3 ? (long long)g.ncx * g.ncy : g.ncx;
@@ -250,13 +307,14 @@ int launch_cell_force(const CellGeo& g, const Phys& p, const float* fld,
   const int threads = gc < kCellThreads ? (gc + 31) / 32 * 32
                                          : kCellThreads;
   const int nchunks = (gc + threads - 1) / threads;
-  const int ld = nsw * g.c < kStageRows ? nsw * g.c : kStageRows;
+  const int ld = nsw * g.c < B::rows ? nsw * g.c : B::rows;
   const size_t smem = sizeof(float) *
-      (table_floats(p.T1) + (size_t)SF_NF * ld + queue_floats(threads));
+      (table_floats(p.T1) + (size_t)NumFields<SWEEP>::v * ld +
+       (SWEEP == SW_FORCE ? queue_floats(threads) : 0));
   cudaError_t err = cudaSuccess;
-  const Fn kernel = pick_build<Fn>(cell_force_kernel<LAYOUT, 5>,
-                                   cell_force_kernel<LAYOUT, 6>, threads,
-                                   smem, &err);
+  const Fn kernel = pick_build<Fn>(
+      cell_sweep_kernel<SWEEP, LAYOUT, B::fewer>,
+      cell_sweep_kernel<SWEEP, LAYOUT, B::more>, threads, smem, &err);
   if (err != cudaSuccess) return (int)err;
   // always: another geometry's pick may have set it lower
   err = cudaFuncSetAttribute(

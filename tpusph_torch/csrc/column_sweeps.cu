@@ -16,7 +16,7 @@
 // zero with type 0. The output is the (8, n_slots) matrix with the O* row
 // meanings; the wrapper zeroes it, and an empty i cell writes nothing.
 //
-// Work split. Force: cell_force.cuh's queued sweep, the layout with G = 1,
+// Work split. Force: cell_sweep.cuh's queued sweep, the layout with G = 1,
 // k = 1, c = cap and nsub_pad = ncz (a block per cell and chunk of up to
 // 128 ranks; per neighbour column the three cells staged to their live
 // reach, each warp's box filter, exact tests and pair queue). Rho and
@@ -49,12 +49,12 @@
 // lookup; per-j terms (EOS p/rho^2, sound speed, 1/rho, tension norms) are
 // computed once while staging; coefficient tables sit in shared memory.
 // The queued force runs the body 32 live pairs a pass instead, in blocks
-// cut to the live ranks (cell_force.cuh). Built without fast-math: IEEE
+// cut to the live ranks (cell_sweep.cuh). Built without fast-math: IEEE
 // divides and square roots.
 
 #include <cuda_runtime.h>
 
-#include "cell_force.cuh"
+#include "cell_sweep.cuh"
 #include "sph_pair.cuh"
 
 namespace {
@@ -213,7 +213,7 @@ extern "C" int column_cgrad_launch(COLUMN_ARGS) {
   return launch<SW_CGRAD>(COLUMN_PASS);
 }
 
-// the queued force sweep (cell_force.cuh)
+// the queued force sweep (cell_sweep.cuh)
 extern "C" int column_force_launch(COLUMN_ARGS) {
   const long long ncells = (long long)ncx * ncy * ncz;
   if (cap < 1 || cap > kMaxThreads || ncells * cap != n_slots) {
@@ -221,8 +221,8 @@ extern "C" int column_force_launch(COLUMN_ARGS) {
   }
   const CellGeo g{n_slots, ncx, ncy, ncz, 1, cap, 1, dim, per_x, per_y,
                   per_col, lx, ly, lcol};
-  return launch_cell_force<L_COLUMN>(g, Phys{dim, kern, flags, T1, cutmax2},
-                                     fld, tab2, tab1, out, stream);
+  return launch_cell_sweep<SW_FORCE, L_COLUMN>(
+      g, Phys{dim, kern, flags, T1, cutmax2}, fld, tab2, tab1, out, stream);
 }
 
 // the one-pass force sweep: the check the queued one is held to

@@ -1,7 +1,7 @@
-// The warp box filter and the warp pair queue, shared by the queued force
-// sweeps (strip_sweeps.cu's strip_filter_kernel, cell_force.cuh's
-// cell_force_kernel for the column and band layouts) and the strip rho
-// sweep.
+// The warp box filter and the warp pair queue, shared by the strip rho and
+// force sweeps (strip_sweeps.cu's strip_filter_kernel) and the cell sweeps
+// (cell_sweep.cuh's cell_sweep_kernel: force on the column and band
+// layouts, rho and colour gradient on the band's).
 //
 // A warp of i rows sweeps a window of staged j rows ([NF][ld] floats in
 // shared memory, sph_pair.cuh's staging) in three phases (filter_window):
@@ -17,7 +17,10 @@
 //       warp runs the queue 32 pairs a pass, every lane on a pair with its
 //       owner's i row from shared memory (put_irow / get_irow), and each
 //       owner adds its pairs' contributions in queue order (run_queue).
-//       Rho runs its short body on the live pair in (b) directly.
+//       Rho and the colour gradient run their short body on the live
+//       pair in (b) directly; the colour gradient's (a) also drops the
+//       rows of a colour no alive row of the warp pairs with (the colour
+//       gate, unlike_types).
 // Each i row sums its pairs in (window, row) order, as the one-pass scan
 // does, and each pair's terms are the same arithmetic, so the sums keep
 // the one-pass scan's bits. The body passes per window fall from the rows
@@ -84,6 +87,40 @@ struct WarpBox {
     r2 = __fmul_rn(rp, rp);
   }
 };
+
+// The colour gate of the colour-gradient sweep: a pair whose two colours
+// are equal adds exactly zero (pair_body returns before it adds), so a set
+// of i rows needs only the j rows whose colour differs from one of theirs.
+// A set of types is a bit mask, bit min(t, kGateBits); the last bit stands
+// for every type from kGateBits up and keeps all of their rows.
+constexpr int kGateBits = 31;
+
+__device__ __forceinline__ unsigned type_bit(int t) {
+  return 1u << min(t, kGateBits);
+}
+
+// The types whose rows a set of i-row types `tset` keeps: tj where
+// c(tj) - c(ti) == 0 fails for some ti of the set (pair_body's own test).
+__device__ __forceinline__ unsigned unlike_types(unsigned tset,
+                                                 const Tables& tb) {
+  if (tset >> kGateBits) return ~0u;
+  unsigned keep = 1u << kGateBits;
+  const int nt = min(tb.T1, kGateBits);
+  for (int tj = 0; tj < nt; ++tj) {
+    const float cj = tb.c1(V_COLOR, tj);
+    for (unsigned s = tset; s; s &= s - 1u) {
+      if (!(cj - tb.c1(V_COLOR, __ffs(s) - 1) == 0.f)) {
+        keep |= 1u << tj;
+        break;
+      }
+    }
+  }
+  return keep;
+}
+
+__device__ __forceinline__ bool gate_keeps(unsigned keep, float type) {
+  return (keep & type_bit((int)type)) != 0u;
+}
 
 __device__ __forceinline__ WarpBox warp_box(const IRow& ir, bool alive,
                                             unsigned wmask, float rc) {
@@ -207,24 +244,29 @@ __device__ __forceinline__ void run_queue(const WarpQueue& wq, int n,
 // A lane keeps a survivor k as its candidate only where `own_all`, or
 // where k lies in its own window [wlo, whi) (a strip warp across two tiles
 // scans the union of their windows). Force queues its live pairs and runs
-// the queue before it returns, so `win` may then be restaged; rho adds
-// each live pair at once. `sir` / `wbase`: the block's i rows and the
-// warp's first (force).
+// the queue before it returns, so `win` may then be restaged; rho and the
+// colour gradient add each live pair at once. `sir` / `wbase`: the block's
+// i rows and the warp's first (force). The colour gradient's (a) also
+// drops the rows of a type outside `tgate` (unlike_types of the warp's
+// types): their pairs add nothing.
 template <int SWEEP>
 __device__ __forceinline__ void filter_window(
     const float* __restrict__ win, int ld, int klo, int khi, bool own_all,
     int wlo, int whi, const WarpBox& bx, const IRow& ir, bool alive,
     unsigned wmask, int lane, int nlanes, const WarpQueue& wq,
     const float* __restrict__ sir, int wbase, const Tables& tb,
-    const Phys& p, float acc[6]) {
+    const Phys& p, float acc[6], unsigned tgate = ~0u) {
   constexpr bool kQueued = SWEEP == SW_FORCE;
   const unsigned lanes_below = (1u << lane) - 1u;
   int queued = 0;
   for (int k0 = klo; k0 < khi; k0 += nlanes) {
     const int kb = k0 + lane;
-    // (a) one row per lane against the warp's box
-    const bool in = kb < khi &&
+    // (a) one row per lane against the warp's box (and colour gate)
+    bool in = kb < khi &&
         bx.holds(win[0 * ld + kb], win[1 * ld + kb], win[2 * ld + kb]);
+    if (SWEEP == SW_CGRAD && in) {
+      in = gate_keeps(tgate, win[SC_TYPE * ld + kb]);
+    }
     unsigned surv = __ballot_sync(wmask, in);
     while (surv) {
       // (b) each lane's exact test of the next survivors, in row order:
@@ -243,7 +285,7 @@ __device__ __forceinline__ void filter_window(
                       && (own_all || (kb >= wlo && kb < whi))
                       && pair_live(rsb, p.cutmax2);
       if (!kQueued) {
-        // rho: its few operations at once
+        // rho, colour gradient: their few operations at once
         if (la) {
           pair_body<SWEEP>(win, ld, ka, ir, tb, p, a0, a1, a2, rsa, acc);
         }

@@ -8,9 +8,9 @@ def all_kernels() -> dict:
     """Every kernel wrapper of the port by name (``strip_rho`` ...
     ``strip_vapor``, ``column_rho`` ... ``column_force``, ``band_rho`` ...
     ``band_force``, ``compact_force``, and the check kernels
-    ``column_force_scan`` and ``band_force_scan``, which no path launches):
-    one registry of launch counts. Imported on call, so that importing the
-    package imports no backend."""
+    ``column_force_scan`` and ``band_{rho,cgrad,force}_scan``, which no
+    path launches): one registry of launch counts. Imported on call, so
+    that importing the package imports no backend."""
     from tpusph_torch.ops import (band_pair, mxu_compact, pallas_pair,
                                   strip_pair)
     return {**{f"strip_{k}": w for k, w in strip_pair.KERNELS.items()},
@@ -18,4 +18,4 @@ def all_kernels() -> dict:
             **{f"band_{k}": w for k, w in band_pair.KERNELS.items()},
             **{f"compact_{k}": w for k, w in mxu_compact.KERNELS.items()},
             "column_force_scan": pallas_pair.column_force_scan,
-            "band_force_scan": band_pair.band_force_scan}
+            **{f"band_{k}_scan": w for k, w in band_pair.SCANS.items()}}

@@ -606,20 +606,23 @@ class BandSweepKernel:
     On the card the sweeps are bound by instruction throughput: each i row
     has 9 x (G + 2k) sub-cells of candidates (~3,500 rows to their live
     reach on the 1M bench's lattice at G 4, c 128), ~110 of them within
-    the cutoff. The force sweep filters before it computes
-    (``csrc/cell_force.cuh``, shared with the column sweep): a block per
+    the cutoff. All three sweeps filter before they compute: a block per
     group and chunk of up to 128 slots, the chunks past the alive ranks
     exiting at once; per neighbour column the group's staged sub-cells to
     their live reach, a warp's box filter (which also drops the staged
-    sub-cells beyond the warp's own +-k), each lane's exact test of the
-    survivors, and a warp pair queue that runs the body 32 live pairs a
-    pass, each row adding its pairs in the one-pass scan's order (the same
-    bits). ``cell_filter.cell_pass_counts`` gives those counts. Rho and
-    colour gradient keep the one-pass scan: a block per group, every lane
-    scanning every staged sub-cell to its live reach. The one-pass force
-    scan is ``band_force_scan`` (launcher ``force_scan``), a check kernel
-    that no path launches: the queued force is held to it bit for bit on
-    the card."""
+    sub-cells beyond the warp's own +-k) and each lane's exact test of the
+    survivors. Force then runs a warp pair queue, the body 32 live pairs a
+    pass; rho and the colour gradient add each live pair at once (one
+    kernel, ``csrc/cell_sweep.cuh``, shared with the column force sweep),
+    and the colour gradient stages only rows of a colour unlike one of
+    the block's alive rows (a pair of one colour adds zero), so a block
+    far from an interface exits after reading the types of its windows.
+    Each row adds its pairs in the one-pass scan's order (the same bits);
+    ``cell_filter.cell_pass_counts`` gives the phases' counts. The
+    one-pass scans are ``band_rho_scan``, ``band_cgrad_scan`` and
+    ``band_force_scan`` (launchers ``*_scan``), check kernels that no path
+    launches: the filtered sweeps are held to them bit for bit on the
+    card."""
 
     def __init__(self, sweep: str, launcher: str | None = None):
         self.sweep = sweep
@@ -660,8 +663,12 @@ band_cgrad = BandSweepKernel("cgrad")
 band_force = BandSweepKernel("force")
 # every kernel wrapper of the band backend, by sweep (launch counts)
 KERNELS = {"rho": band_rho, "cgrad": band_cgrad, "force": band_force}
-# the one-pass force scan: on no path, the queued force's bitwise check
+# the one-pass scans: on no path, the filtered sweeps' bitwise checks
+band_rho_scan = BandSweepKernel("rho", "rho_scan")
+band_cgrad_scan = BandSweepKernel("cgrad", "cgrad_scan")
 band_force_scan = BandSweepKernel("force", "force_scan")
+SCANS = {"rho": band_rho_scan, "cgrad": band_cgrad_scan,
+         "force": band_force_scan}
 
 
 # --------------------------------------------------------------------------

@@ -5,10 +5,12 @@ force, ``csrc/column_sweeps.cu``), the band sweeps (rho, colour
 gradient, force, ``csrc/band_sweeps.cu``) and the compacted force sweep
 (``csrc/compact_force.cu``), which share their pair physics through
 ``csrc/sph_pair.cuh``; the strip, column and band force sweeps share the
-warp box filter and pair queue (``csrc/warp_filter.cuh``), the column and
-band ones their queued force kernel (``csrc/cell_force.cuh``), and each
-of those two libraries also exports its one-pass force scan as
-``{column,band}_force_scan_launch``, a check kernel no path launches.
+warp box filter and pair queue (``csrc/warp_filter.cuh``), and the column
+force and the three band sweeps one filtered kernel
+(``csrc/cell_sweep.cuh``). The column library also exports its one-pass
+force scan as ``column_force_scan_launch``, the band library its one-pass
+scans as ``band_{rho,cgrad,force}_scan_launch``: check kernels no path
+launches.
 
 Each source has a plain C interface: it is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library under ``tpusph_torch/_build/`` at first
@@ -38,7 +40,7 @@ SOURCES = {"strip": _PKG / "csrc" / "strip_sweeps.cu",
            "compact": _PKG / "csrc" / "compact_force.cu"}
 HEADERS = tuple(_PKG / "csrc" / h for h in ("sph_pair.cuh",
                                              "warp_filter.cuh",
-                                             "cell_force.cuh"))
+                                             "cell_sweep.cuh"))
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -53,6 +55,11 @@ _COLUMN_FLOAT_ARGS = ("lx", "ly", "lcol", "cutmax2")
 _BAND_INT_ARGS = ("n_slots", "ncx", "ncy", "nsub_pad", "G", "c", "k", "dim",
                   "per_x", "per_y", "per_col", "kernel", "flags", "T1")
 _COMPACT_INT_ARGS = _INT_ARGS + ("P",)
+# the launchers of the column and band libraries: each sweep and its
+# one-pass check kernels
+LAUNCHERS = {"column": ("rho", "cgrad", "force", "force_scan"),
+             "band": ("rho", "cgrad", "force", "rho_scan", "cgrad_scan",
+                      "force_scan")}
 
 
 class _Lib:
@@ -95,7 +102,7 @@ def _bind(name: str, handle: ctypes.CDLL) -> None:
         fn.restype = i32
     else:
         ints = _COLUMN_INT_ARGS if name == "column" else _BAND_INT_ARGS
-        for sweep in ("rho", "cgrad", "force", "force_scan"):
+        for sweep in LAUNCHERS[name]:
             fn = getattr(handle, f"{name}_{sweep}_launch")
             fn.argtypes = ([ptr] * 4 + [i32] * len(ints)
                            + [f32] * len(_COLUMN_FLOAT_ARGS) + [ptr])
@@ -188,8 +195,9 @@ def launch_column(sweep: str, fld, tab2, tab1, out, *, lx: float,
 
 def launch_band(sweep: str, fld, tab2, tab1, out, *, lx: float, ly: float,
                 lcol: float, cutmax2: float, **ints) -> None:
-    """Launch one band sweep (``sweep`` rho, cgrad, force or the check
-    kernel force_scan) on the current stream; raises on a refused launch.
+    """Launch one band sweep (``sweep`` rho, cgrad, force or a check
+    kernel rho_scan, cgrad_scan, force_scan) on the current stream; raises
+    on a refused launch.
     Tensors are checked by the caller (band_pair.BandSweepKernel)."""
     _call("band", f"band_{sweep}_launch", (fld, tab2, tab1, out), ints,
           _BAND_INT_ARGS, (lx, ly, lcol, cutmax2), fld.device)

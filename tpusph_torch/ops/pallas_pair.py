@@ -188,7 +188,7 @@ class ColumnSweepKernel:
     On the card the sweeps are bound by instruction throughput: each i row
     has 27 cells of candidates (~1,700 rows to the cells' live reach at the
     1M bench's ~64 rows a cell), ~110 of them within the cutoff. The force
-    sweep filters before it computes (``csrc/cell_force.cuh``): a block
+    sweep filters before it computes (``csrc/cell_sweep.cuh``): a block
     per cell and chunk of up to 128 ranks, so the chunks past a cell's
     alive rows exit at once and a cap set by one dense cell costs the
     other cells nothing; per neighbour column the three cells staged to

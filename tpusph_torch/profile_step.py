@@ -30,31 +30,35 @@ from tpusph_torch.bench import build_bench_sim, card_info, run_bench
 # the hand-written kernels by their names in tpusph_torch.ops.all_kernels;
 # a sweep kernel's template argument is the Sweep enum (rho 0, cgrad 1,
 # force 2); the strip rho and force sweeps are strip_filter_kernel, whose
-# second template argument is its blocks per SM; the column and band force
-# sweeps are cell_force_kernel, whose first is the layout (column 0, band
-# 1), and the one-pass force instantiation of their sweep kernels is the
-# check kernel {column,band}_force_scan
+# second template argument is its blocks per SM; the column force and the
+# three band sweeps are cell_sweep_kernel<sweep, layout (column 0, band
+# 1), blocks per SM>; the one-pass column_sweep_kernel's force
+# instantiation is the check kernel column_force_scan, and every
+# band_sweep_kernel is a check kernel band_{sweep}_scan
 SWEEPS = ("rho", "cgrad", "force")
+LAYOUTS = ("column", "band")
 KERNEL_NAMES = tuple(f"{b}_{s}" for b in ("strip", "column", "band")
                      for s in SWEEPS) + (
-    "strip_vapor", "column_force_scan", "band_force_scan")
+    "strip_vapor", "column_force_scan",
+    *(f"band_{s}_scan" for s in SWEEPS))
 _SWEEP = re.compile(
     r"(strip|column|band)_(?:sweep|filter)_kernel<(?:\(int\))?(\d)[,>]")
-_CELL = re.compile(r"cell_force_kernel<(?:\(int\))?(\d)[,>]")
+_CELL_SWEEP = re.compile(
+    r"cell_sweep_kernel<(?:\(int\))?(\d),\s*(?:\(int\))?(\d)[,>]")
 
 
 def _kernel_of(name: str) -> str | None:
     if "strip_vapor_kernel" in name:
         return "strip_vapor"
-    m = _CELL.search(name)
+    m = _CELL_SWEEP.search(name)
     if m:
-        return f"{('column', 'band')[int(m.group(1))]}_force"
+        return f"{LAYOUTS[int(m.group(2))]}_{SWEEPS[int(m.group(1))]}"
     m = _SWEEP.search(name)
     if not m:
         return None
     kind, sweep = m.group(1), SWEEPS[int(m.group(2))]
-    return f"{kind}_force_scan" if kind != "strip" and sweep == "force" \
-        else f"{kind}_{sweep}"
+    scan = kind == "band" or (kind == "column" and sweep == "force")
+    return f"{kind}_{sweep}_scan" if scan else f"{kind}_{sweep}"
 
 
 def profile_window(mode: str, n_particles: int, steps: int,
