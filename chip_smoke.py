@@ -65,21 +65,25 @@ Phases, each of which raises on failure (exit code != 0, no result line):
  13. column  — on the bench `boiling` state under backend="pallas" (the
                column kernel on the cell grid) after the initial sort, the
                three column sweeps' kernels against their plain versions,
-               as in phase 3; the queued force kernel (csrc/cell_sweep.cuh)
-               also against the one-pass check kernel
-               (column_force_scan_launch) on the same inputs: fails if any
-               alive row differs bitwise, times both with CUDA events in
-               turns (queued, check, check, queued; fails unless the queued
-               one is the faster), and prints the counts of its phases
-               (cell_filter.cell_pass_counts: blocks that exit, staging
-               rounds, box survivors, live pairs, body passes lockstep and
-               with the warp pair queue; fails if a live pair lies outside
-               its warp's or its block's box in that host copy of the
-               filter).
+               as in phase 3; each (csrc/cell_sweep.cuh: the reach from
+               each cell's alive prefix, the box filter, force's pair
+               queue, cgrad's colour gate) also against its one-pass check
+               kernel (column_{rho,cgrad,force}_scan_launch) on the same
+               inputs: fails if any alive row differs bitwise, times both
+               with CUDA events in turns (filtered, check, check, filtered;
+               fails unless the filtered one is the faster), and prints the
+               counts of its phases (cell_filter.cell_pass_counts: the
+               reach pass's type reads beside a per-slot ballot pass's,
+               blocks that exit and, for cgrad, that exit on the gate,
+               staging rounds, box survivors, live pairs, body passes
+               lockstep and in the kernel; fails if a needed pair lies
+               outside its warp's or its block's box or gate in that host
+               copy of the filter).
  14. column boiling — resets the counts, runs the `boiling` bench with
                backend="pallas", and checks the three column kernels were
                launched and no other was (the strip's and the one-pass
-               check kernels included), plus phase 10's ledgers.
+               check kernels column_{rho,cgrad,force}_scan included: every
+               main path asserts them at 0), plus phase 10's ledgers.
  15. column  — phase 13 again on the layout after the column path, and the
                cell-grid vapor query's time per firing.
  16. column slice — the 12^3 bubble on the column kernel, GPU against CPU.
@@ -115,7 +119,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 Prints the five bench JSON lines, one JSON line of the kernels (launches
 on the boiling paths, the band path and the compacted sweep's two paths;
 times and bounds from phases 11, 15, 19 and 6, the largest error of all
-comparisons; for the column force and the three band kernels also the
+comparisons; for the three column and the three band kernels also the
 one-pass check kernel's time in turns, the rows that differ bitwise from
 it and the counts of their phases), and as the last line {"ok": true,
 "device": {...}}. The check kernels are on no path and have no line of
@@ -704,8 +708,8 @@ def bubble_slice(backend):
 def cell_layout(kind, backend, state, aux):
     """(fld, layout, kernels, the one-pass check kernels by sweep, plain
     sweep, pair counter) of the column kernel's cell grid (``kind``
-    "column": its force kernel has a check kernel) or the band's
-    slot-resident sub-cells ("band": all three). Every alive row of either
+    "column") or the band's slot-resident sub-cells ("band"); every sweep
+    of either has a check kernel. Every alive row of either
     layout is an owned particle. ``count(fld, cut2, keep)`` counts the
     (i, j) pairs with both types alive and 1e-12 < rsq < cut2 in the
     sweeps' windows, filtered by ``keep(pi, pj)`` when given."""
@@ -723,7 +727,6 @@ def cell_layout(kind, backend, state, aux):
             return pallas_pair._column_pairs(fld, cg, b0, b1, cut2, reach)
 
         layout, mod, plain = cg, pallas_pair, pallas_pair.plain_column_sweep
-        scans = {"force": pallas_pair.column_force_scan}
     else:
         geom = backend.geom
         fld = band_pair.pack_fields(state)
@@ -736,7 +739,6 @@ def cell_layout(kind, backend, state, aux):
             return band_pair._band_pairs(fld, geom, b0, b1, cut2, reach)
 
         layout, mod, plain = geom, band_pair, band_pair.plain_band_sweep
-        scans = band_pair.SCANS
 
     def count(fld, cut2, keep=None):
         total = 0
@@ -745,7 +747,7 @@ def cell_layout(kind, backend, state, aux):
             total += pi.numel() if keep is None else int(keep(pi, pj).sum())
         return total
 
-    return fld, layout, mod.KERNELS, scans, plain, count
+    return fld, layout, mod.KERNELS, mod.SCANS, plain, count
 
 
 def cell_counts(label, fld, layout, cut2, sweep="force", colors=None):
@@ -759,7 +761,9 @@ def cell_counts(label, fld, layout, cut2, sweep="force", colors=None):
     print(f"  {label} counts: {json.dumps(c)}")
     print(f"  {label}: per row {c['candidates'] / rows:.1f} one-pass "
           f"candidates, {c['live_pairs'] / rows:.1f} live pairs, "
-          f"{c['needed_pairs'] / rows:.2f} needed; blocks "
+          f"{c['needed_pairs'] / rows:.2f} needed; reach pass "
+          f"{c['reach_reads']} type reads ({c['ballot_reads']} in a "
+          "per-slot ballot pass); blocks "
           f"{c['blocks_alive']} of {c['blocks']} hold an alive row, "
           f"{c['gate_exits']} of those exit on the colour gate; "
           f"{c['rounds']} staging rounds ({c['multi_round_windows']} windows "
@@ -795,8 +799,8 @@ def hold_cells_to_plain(sim, kind, after_run=False, reps=10):
     """Each column (``kind`` "column") or band ("band") kernel against its
     plain version on the layout of ``layout_state``, fed as the backend's
     force stage feeds them (rho patched before cgrad, cg before force);
-    each kernel with a one-pass check kernel (column force; band rho,
-    cgrad and force) also against it (no alive row may differ bitwise;
+    each kernel also against its one-pass check kernel (no alive row may
+    differ bitwise;
     both timed in turns, the filtered one the faster) with the counts of
     its phases; after a main path with phase change also the cell-grid
     vapor query's time per firing. Returns {name: report}."""
@@ -859,31 +863,30 @@ def hold_cells_to_plain(sim, kind, after_run=False, reps=10):
         report[sweep] = dict(max_abs_err=max(errs), **timed(
             f"{kind} {sweep}", run_kernel, run_plain, n_own, ops, reps,
             kind=sweep))
-        if sweep in scans:
-            # the same pairs in the same order through the same pair body:
-            # equal bit for bit on every alive row (a pair the kernel's
-            # filter or colour gate dropped would show here)
-            scan = scans[sweep]
+        # the same pairs in the same order through the same pair body:
+        # equal bit for bit on every alive row (a pair the kernel's
+        # filter or colour gate dropped would show here)
+        scan = scans[sweep]
 
-            def run_scan():
-                return scan(fld, tabs, layout, spec)
+        def run_scan():
+            return scan(fld, tabs, layout, spec)
 
-            out_s = run_scan()
-            sel = list(rows[sweep])
-            differ = int((out_k[sel][:, alive].view(torch.int32)
-                          != out_s[sel][:, alive].view(torch.int32))
-                         .any(0).sum())
-            print(f"  {kind} {sweep}: alive rows that differ bitwise between "
-                  f"the filtered kernel and the one-pass check kernel: "
-                  f"{differ} of {n_own} (must be 0)")
-            assert differ == 0, (kind, sweep, differ)
-            ms, scan_ms = in_turns(f"{kind} {sweep}", run_kernel, run_scan,
-                                   reps)
-            report[sweep].update(
-                ms_in_turns=ms, scan_ms=scan_ms, rows_differ_bitwise=differ,
-                warp_passes=cell_counts(
-                    f"{kind} {sweep}", fld, layout, tabs.cutmax2[sweep],
-                    sweep, tabs.tab1[TABLES_1D.index("color")]))
+        out_s = run_scan()
+        sel = list(rows[sweep])
+        differ = int((out_k[sel][:, alive].view(torch.int32)
+                      != out_s[sel][:, alive].view(torch.int32))
+                     .any(0).sum())
+        print(f"  {kind} {sweep}: alive rows that differ bitwise between "
+              f"the filtered kernel and the one-pass check kernel: "
+              f"{differ} of {n_own} (must be 0)")
+        assert differ == 0, (kind, sweep, differ)
+        ms, scan_ms = in_turns(f"{kind} {sweep}", run_kernel, run_scan,
+                               reps)
+        report[sweep].update(
+            ms_in_turns=ms, scan_ms=scan_ms, rows_differ_bitwise=differ,
+            warp_passes=cell_counts(
+                f"{kind} {sweep}", fld, layout, tabs.cutmax2[sweep],
+                sweep, tabs.tab1[TABLES_1D.index("color")]))
         if sweep == "rho":
             total = out_p[ORHO] * fld[RM] if spec.rhosum_nd else out_p[ORHO]
             fld[RRHO] = torch.where(alive, total, fld[RRHO])

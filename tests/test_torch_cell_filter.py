@@ -23,6 +23,12 @@ column grid, a vapour sphere of type 2 in type 1 and a lattice of one
 colour: its filter keeps every live pair and, for the colour gradient,
 its colour gate every pair of unlike colour (with the gate inverted the
 sphere case fails), and the unlike pairs equal their brute-force count.
+On the column grid the kernels take each staged cell's live reach from
+its alive prefix, by a binary search over its types: the invariant that
+rests on (a cell's alive slots are exactly its first min(count, cap)
+ranks) is held after grid.build and pack_dense, with a cell over the cap
+and right after a phase-change insertion, and the search's reach is held
+equal to the per-slot ballot reach with fewer type reads.
 The layouts themselves are held exactly against the JAX package in
 tests/test_torch_cellgrid.py and tests/test_torch_band_layout.py."""
 
@@ -31,6 +37,7 @@ import pytest
 import torch
 
 from tpusph_torch import grid
+from tpusph_torch.bench import build_bubble_sim
 from tpusph_torch.ops import band_pair, cell_filter, pallas_pair
 from tpusph_torch.ops.rows import RTYPE, TABLES_1D
 from tpusph_torch.params import PairTables
@@ -89,11 +96,18 @@ def lattice(dim, shape, periodic, hfac, seed, dx=0.5, dense_cell=0,
     return st, box, tables.stacked("cpu"), tables.max_cut()
 
 
-def column_layout(st, box, cutoff, dim, cap=None):
-    """(fld, layout, alive positions) of the column kernel's cell grid."""
+def column_grid(st, box, cutoff, dim, cap=None):
+    """(backend, sorted state, cell-grid data) of the column kernel's cell
+    grid after its first build."""
     geom = grid.make_geometry(box, cutoff, dim, skin=0.2, cap=cap)
     backend = pallas_pair.PallasBackend(geom, box, ntypes=2, device="cpu")
     st, aux = backend.init_aux(st, box)
+    return backend, st, aux
+
+
+def column_layout(st, box, cutoff, dim, cap=None):
+    """(fld, layout, alive positions) of the column kernel's cell grid."""
+    backend, st, aux = column_grid(st, box, cutoff, dim, cap)
     assert int(aux.overflow.sum()) == 0
     fld, _, _ = pallas_pair.pack_dense(st, aux, backend.colgrid)
     return fld, backend.colgrid, st.x[st.alive].numpy()
@@ -148,6 +162,12 @@ def test_filter_is_conservative_and_windows_hold_every_pair(
     c = cell_filter.cell_pass_counts(fld, lay, cut2)
     assert c["live_pairs"] > 0
     assert c["live_outside_box"] == 0, c
+    # the column grid finds its reach from the alive prefixes, the band
+    # reads every slot
+    if kind == "column":
+        assert c["reach_reads"] < c["ballot_reads"], c
+    else:
+        assert c["reach_reads"] == c["ballot_reads"], c
     assert c["queue_passes"] <= c["old_passes"] <= c["box_survivors"], c
     # a warp's survivors lie inside its block's box
     wpc = cell_filter.block_threads(cell_filter.as_band(lay)) // 32
@@ -205,6 +225,9 @@ SWEEP_CASES = [
     ("band", 3, (16, 16, 16), (True, True, True), 2.2, "sphere"),
     ("band", 3, (12, 12, 12), (True, True, True), 2.2, "one"),
     ("column", 3, (12, 12, 12), (True, True, True), 2.2, "random"),
+    ("column", 3, (12, 12, 12), (False, False, False), 2.2, "random"),
+    ("column", 2, (40, 40), (True, True, False), 2.2, "random"),
+    ("column", 3, (16, 16, 16), (True, True, True), 2.2, "sphere"),
 ]
 
 
@@ -234,6 +257,9 @@ def test_sweep_filter_is_conservative_and_gated(kind, dim, shape, periodic,
     assert c["box_survivors"] <= wpc * c["staged_with_terms"], c
     assert c["staged_with_terms"] <= c["staged_rows"], c
     assert c["live_pairs"] == brute_force_pairs(x, box, cut2)
+    if kind == "column":
+        # the search and, for cgrad, the gate's pass over the prefixes
+        assert c["reach_reads"] < c["ballot_reads"], c
     alive = fld[RTYPE] > 0.5
     colour = colors[fld[RTYPE][alive].long()].numpy()
     assert x.shape[0] == colour.shape[0]
@@ -250,3 +276,90 @@ def test_sweep_filter_is_conservative_and_gated(kind, dim, shape, periodic,
         # blocks far from the sphere exit, those near it sweep
         assert 0 < c["gate_exits"] < c["blocks_alive"], c
         assert c["needed_pairs"] > 0, c
+
+
+def column_case(case):
+    """(fld, colgrid, cell occupancy) of a column grid after its first
+    build: a 12^3 lattice ("lattice"), one cell of 507 rows under cap 510
+    ("dense_cell") or under the default cap of 64 ("over_cap": pack_dense
+    drops its ranks from 64 up), 2D, open edges."""
+    dim, shape, periodic, dense, cap = 3, (12, 12, 12), (True,) * 3, 0, None
+    if case == "dense_cell":
+        dense, cap = 480, 510
+    elif case == "over_cap":
+        dense = 480
+    elif case == "2d":
+        dim, shape, periodic = 2, (40, 40), (True, True, False)
+    elif case == "open":
+        periodic = (False,) * 3
+    st, box, _, cutoff = lattice(dim, shape, periodic, 2.2, seed=13,
+                                 dense_cell=dense)
+    backend, st, aux = column_grid(st, box, cutoff, dim, cap)
+    assert (int(aux.overflow.sum()) > 0) == (case == "over_cap")
+    fld, _, _ = pallas_pair.pack_dense(st, aux, backend.colgrid)
+    return fld, backend.colgrid, aux.counts
+
+
+def alive_prefixes_hold(fld, cg, counts):
+    """Whether the alive slots of every cell are exactly its first
+    min(count, cap) ranks."""
+    alive = (fld[RTYPE] > 0.5).reshape(-1, cg.cap)
+    return torch.equal(alive, torch.arange(cg.cap)
+                       < counts.clamp(max=cg.cap)[:, None])
+
+
+@pytest.mark.parametrize("case", ["lattice", "over_cap", "2d", "open",
+                                  "bubble_insertion"])
+def test_column_alive_slots_are_each_cells_prefix(case):
+    """The invariant the column kernels' live reach rests on
+    (csrc/cell_sweep.cuh): after grid.build and pack_dense, type > 0.5
+    holds on exactly ranks [0, min(count, cap)) of every cell; with a cell
+    over the cap; and on the 12^3 bubble right after a phase-change
+    insertion, both on the stale grid (the new rows are in no cell yet)
+    and on the rebuild the insertion forces before the next force pass."""
+    if case != "bubble_insertion":
+        assert alive_prefixes_hold(*column_case(case))
+        return
+    sim = build_bubble_sim(device="cpu", backend="pallas")
+    n0 = sim.natoms
+    while sim.natoms == n0:
+        assert sim.step_count < 10, "no insertion fired"
+        sim.run(1)
+    backend = sim._runner.backend
+    cg = backend.colgrid
+    fld, _, _ = pallas_pair.pack_dense(sim.state, sim.aux, cg)
+    assert alive_prefixes_hold(fld, cg, sim.aux.counts)
+    assert int((fld[RTYPE] > 0.5).sum()) < sim.natoms
+    state, aux, rebuilt = backend.prepare(sim.state, sim.aux,
+                                          sim.step_count, sim.box)
+    assert rebuilt and int(aux.overflow.sum()) == 0
+    fld, _, _ = pallas_pair.pack_dense(state, aux, cg)
+    assert alive_prefixes_hold(fld, cg, aux.counts)
+    assert int((fld[RTYPE] > 0.5).sum()) == sim.natoms
+
+
+@pytest.mark.parametrize("case", ["dense_cell", "2d", "open", "over_cap"])
+def test_prefix_reach_equals_ballot_reach(case):
+    """The column kernels' binary search for each cell's alive prefix
+    (``cell_filter.alive_prefix``, the kernel's) finds the reach the
+    per-slot ballot pass finds (one past the last alive rank) on every
+    cell, with at most ceil(log2(cap + 1)) type reads a cell; on a cell
+    that breaks the invariant (a dead rank below an alive one) it does
+    not."""
+    fld, cg, _ = column_case(case)
+    typ = fld[RTYPE].reshape(-1, cg.cap)
+    ballot = ((typ > 0.5).long() * torch.arange(1, cg.cap + 1)).amax(1)
+    reach, reads = cell_filter.alive_prefix(typ)
+    assert torch.equal(reach, ballot)
+    assert int(reads.max()) <= int(np.ceil(np.log2(cg.cap + 1)))
+    assert int(reads.sum()) < typ.numel()
+    # kill the first alive rank the search reads in the fullest cell (its
+    # probes halve the cap while they read dead ranks): its alive rows are
+    # no prefix, and the search stops below them
+    full = int(ballot.argmax())
+    rank = cg.cap // 2
+    while typ[full, rank] <= 0.5:
+        rank //= 2
+    typ[full, rank] = 0.0
+    reach, _ = cell_filter.alive_prefix(typ)
+    assert int(reach[full]) <= rank < int(ballot[full])

@@ -17,11 +17,12 @@ of tpusph_torch/csrc/cell_sweep.cuh) equal their one-pass check kernels
 bit for bit on every alive row, on layouts that reach their control flow:
 a cap not a multiple of 32, one dense cell among sparse ones (chunks that
 exit, windows staged in two rounds), 2D, a periodic column of one cell,
-open edges, band c 80 and c 128, warps of one alive row. The band rho
-and colour-gradient kernels (the same kernel's short bodies) equal
-their one-pass check kernels bit for bit on every alive row on the same
-band cases, 2D, a vapour sphere and a lattice of one colour (the colour
-gate). A CUDA tensor never takes a plain version: every wrapper call
+open edges, band c 80 and c 128, warps of one alive row (on the column
+grid cells of one alive row: its alive rows are each cell's prefix). The
+column and band rho and colour-gradient kernels (the same kernel's short
+bodies) equal their one-pass check kernels bit for bit on every alive
+row on the same cases, 2D, a vapour sphere and a lattice of one colour
+(the colour gate). A CUDA tensor never takes a plain version: every wrapper call
 moves its launch counter.
 
 Needs an NVIDIA GPU and nvcc (marker ``cuda``); elsewhere every test skips.
@@ -537,9 +538,25 @@ def keep_one_alive(fld, first_slot, fill):
     return int((last >= 0).sum())
 
 
+def keep_first_alive(fld, cg):
+    """In every third cell that holds an alive row, kill every rank but
+    rank 0 (the dead slots zero, as pack_dense leaves empty ones): cells
+    whose one warp holds one alive row, with the alive slots still each
+    cell's prefix, as the column kernels need. Returns their number."""
+    alive = (fld[RTYPE] > 0.5).reshape(-1, cg.cap)
+    cells = alive[:, 0].nonzero()[::3, 0]
+    slots = (cells[:, None] * cg.cap
+             + torch.arange(1, cg.cap, device=fld.device)).reshape(-1)
+    fld[:, slots] = 0.0
+    return cells.numel()
+
+
 def column_case(case, device):
-    """The column layout of one card-test case: (fld, colgrid)."""
+    """The column layout of one card-test case: (fld, colgrid, tables);
+    the types at random, but a 16^3 vapour sphere ("sphere") or one type
+    ("one")."""
     dim, cap, shape, periodic, dense = 3, None, None, True, 0
+    types = {"sphere": "sphere", "one": "one"}.get(case, "random")
     if case == "cap70":
         cap = 70                        # not a multiple of 32
     elif case == "dense_cell":
@@ -550,9 +567,9 @@ def column_case(case, device):
         shape = (12, 12, 4)             # periodic z of 2.0: one cell
     elif case == "open":
         periodic = False
-    st, box, tables = lattice(dim, 12 if dim == 3 else 40, periodic,
-                              dim + 51, device, shape=shape,
-                              dense_cell=dense)
+    nside = 40 if dim == 2 else 16 if case == "sphere" else 12
+    st, box, tables = lattice(dim, nside, periodic, dim + 51, device,
+                              shape=shape, dense_cell=dense, types=types)
     geom = grid.make_geometry(box, tables.max_cut(), dim, skin=0.2, cap=cap)
     backend = pallas_pair.PallasBackend(geom, box, ntypes=2, device=device)
     st, aux = backend.init_aux(st, box)
@@ -576,11 +593,11 @@ def test_column_force_matches_one_pass_scan(device, case, name):
     every alive row: a cap not a multiple of 32; one cell of 507 rows
     beside cells of ~27 (chunks that exit, windows staged in two rounds);
     2D; a periodic column of one cell (staged three times under three
-    shifts); open edges; warps of one alive row above dead ranks."""
+    shifts); open edges; cells of one alive row (a cell's alive rows are
+    the prefix of its ranks the kernel's reach search needs)."""
     fld, cg, tables = column_case(case, device)
     if case == "one_alive":
-        cells = torch.arange(cg.ncols * cg.ncz, device=device) * cg.cap
-        assert keep_one_alive(fld, cells, lambda r: 0.0) >= 4
+        assert keep_first_alive(fld, cg) >= 4
     dim = cg.dim
     counts = force_matches_plain_and_scan(
         "column", fld, tables.stacked(device), cg,
@@ -588,6 +605,65 @@ def test_column_force_matches_one_pass_scan(device, case, name):
     if case == "dense_cell":
         assert counts["blocks_alive"] < counts["blocks"] // 3, counts
         assert counts["multi_round_windows"] > 0, counts
+
+
+@pytest.mark.parametrize("case,name", [
+    ("cap70", "bench"), ("dense_cell", "bench"),
+    ("dense_cell", "idealgas_cubic"), ("2d", "bench"),
+    ("2d", "heatpc_wendland_st"), ("ncz1", "bench"), ("open", "bench"),
+    ("one_alive", "bench"), ("sphere", "bench"), ("one", "bench"),
+])
+def test_column_rho_cgrad_match_one_pass_scans(device, case, name):
+    """The column rho and colour-gradient kernels (csrc/cell_sweep.cuh on
+    the column grid: each staged cell's reach from its alive prefix, the
+    box filter and, for the colour gradient, the colour gate's pass over
+    the prefixes) within their bars of the plain versions and bit for bit
+    equal to the one-pass check kernels on every alive row: a cap not a
+    multiple of 32; one cell of 507 rows (chunks that exit, windows staged
+    in two rounds); 2D; a periodic column of one cell (staged three times
+    under three shifts); open edges; cells of one alive row; a vapour
+    sphere (blocks near it sweep, the gate drops the rest) and one colour
+    (every block exits on the gate). Rho is patched into the fields before
+    the colour gradient, as the force stage does."""
+    fld, cg, tables = column_case(case, device)
+    if case == "one_alive":
+        assert keep_first_alive(fld, cg) >= 4
+    spec = PhysicsSpec(dim=cg.dim, **SPECS[name])
+    tabs = tables.stacked(device)
+    alive = fld[RTYPE] > 0.5
+    counts = {}
+    for sweep in ("rho", "cgrad"):
+        kern, scan = pallas_pair.KERNELS[sweep], pallas_pair.SCANS[sweep]
+        n0, s0 = kern.launches, scan.launches
+        out_k = kern(fld, tabs, cg, spec)
+        out_s = scan(fld, tabs, cg, spec)
+        torch.cuda.synchronize()
+        assert (kern.launches, scan.launches) == (n0 + 1, s0 + 1)
+        out_p = pallas_pair.plain_column_sweep(sweep, fld, tabs, cg, spec)
+        check_rows(sweep, out_k, out_p, alive)
+        rows = list(ROWS[sweep])
+        bits_k = out_k[rows][:, alive].view(torch.int32)
+        bits_s = out_s[rows][:, alive].view(torch.int32)
+        differ = int((bits_k != bits_s).any(0).sum())
+        assert differ == 0, (sweep, differ)
+        assert float(out_k[:, ~alive].abs().max()) == 0.0
+        c = counts[sweep] = cell_filter.cell_pass_counts(
+            fld, cg, tabs.cutmax2[sweep], sweep,
+            tabs.tab1[TABLES_1D.index("color")])
+        assert c["live_outside_box"] == 0, c
+        assert c["reach_reads"] < c["ballot_reads"], c
+        if sweep == "rho":
+            total = out_p[ORHO] * fld[RM] if spec.rhosum_nd else out_p[ORHO]
+            fld[RRHO] = torch.where(alive, total, fld[RRHO])
+    rho, cgrad = counts["rho"], counts["cgrad"]
+    if case == "dense_cell":
+        assert rho["blocks_alive"] < rho["blocks"] // 3, rho
+        assert rho["multi_round_windows"] > 0, rho
+    elif case == "one":
+        assert cgrad["gate_exits"] == cgrad["blocks_alive"], cgrad
+    elif case == "sphere":
+        assert 0 < cgrad["needed_pairs"] < cgrad["live_pairs"], cgrad
+        assert 0 < cgrad["gate_exits"] < cgrad["blocks_alive"], cgrad
 
 
 def band_case(case, device):

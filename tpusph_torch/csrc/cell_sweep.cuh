@@ -25,7 +25,8 @@
 // live ranks, not of the whole cap (the one-pass scan's blocks span the
 // group: at cap 280 and ~64 rows a cell, 7 of its 9 warps hold no alive
 // row). For each neighbour column the block finds the live reach of each
-// staged sub-cell (one past its last candidate rank), and stages the
+// staged sub-cell (one past its last candidate rank; on the column grid
+// from the cell's alive prefix, below), and stages the
 // staged sub-cells' rows below their reach, in (sub-cell, rank) order, at
 // most `ld` rows a round, with the image shift added to the positions and
 // the per-j terms computed once. A row outside the block's box (the union
@@ -36,6 +37,26 @@
 // warp pair queue, flushed before the next round is staged, while rho and
 // the colour gradient add each live pair at once (their body is a few
 // operations).
+//
+// The live reach on the column grid. The band reads the type of every
+// slot of every staged sub-cell (its slots are sentinel-dead, in no
+// order), in a ballot pass per neighbour column. A column cell's alive
+// rows are a prefix, and the reach comes from it without reading the cap:
+// grid.build sorts a cell's alive rows to ranks [0, count) and sends dead
+// rows to the sentinel cell; pack_dense drops rows that are not alive and
+// ranks at or above the cap; and an insertion by fix phase_change forces
+// a rebuild before the next force pass (its new rows, still in the
+// sentinel cell, are not packed before it). So at every sweep a cell's
+// alive slots are exactly its first min(count, cap) ranks, and the
+// kernel relies on it. Before its first neighbour column the block takes
+// the alive prefix of all 27 (3D) / 9 (2D) staged cells, one thread a cell
+// by a binary search over type > 0.5 (ceil(log2(cap + 1)) reads, 7 at cap
+// 112, 9 at cap 280, against the cap's 112 or 280): rho and force stage
+// each cell to its prefix, the ballot pass's reach. The colour gradient
+// then runs the ballot pass for its gate over the prefixes only, every
+// neighbour column in one pass (~1,700 type reads a block at 1M, ~64 rows
+// a cell, against 27 x cap), and skips the neighbour columns left with no
+// candidate without a barrier.
 //
 // The colour gate (colour gradient only). A pair of one colour adds
 // exactly zero (pair_body returns first), and at 1M after the band path
@@ -60,7 +81,8 @@
 // has a live pair), then the box filter's exact tests (a warp of rows
 // spread over a whole cell keeps 410-620 rows at 1M) and the staging,
 // which each chunk repeats for its group's window (read from L2); most of
-// the gated colour gradient's blocks read only their windows' types.
+// the gated colour gradient's blocks read only their windows' types (on
+// the column grid only their alive prefixes').
 // Resident warps decide the speed. Force stages 18 floats a row and its
 // queue: 256 rows a round (~36 KB a block) and the five- or six-block
 // build (88 or 80 registers); rho and cgrad stage 5 floats and no queue:
@@ -80,6 +102,7 @@ namespace sph {
 
 constexpr int kCellThreads = 128;    // i slots per block (a chunk)
 constexpr int kMaxStagedCells = 96;  // staged sub-cells G + 2k
+constexpr int kColStaged = 27;       // column: 9 neighbour columns x 3 cells
 enum { L_COLUMN = 0, L_BAND = 1 };
 
 // Per sweep: staged rows per round, at most, and the two builds (blocks an
@@ -112,6 +135,46 @@ __device__ __forceinline__ bool wrap_sub(const CellGeo& g, int& sub,
   return true;
 }
 
+// Neighbour column (ox, oy) of the plane column (cx, cy): its first slot
+// and plane shift, or false past a non-periodic plane edge.
+__device__ __forceinline__ bool nbr_column(const CellGeo& g, int cx, int cy,
+                                           int ox, int oy, int& jbase,
+                                           float& sx, float& sy) {
+  int nx = cx + ox, ny = cy + oy;
+  sx = 0.f;
+  sy = 0.f;
+  if (nx < 0 || nx >= g.ncx) {
+    if (!g.per_x) return false;
+    sx = nx < 0 ? -g.lx : g.lx;
+    nx = nx < 0 ? nx + g.ncx : nx - g.ncx;
+  }
+  if (g.dim == 3 && (ny < 0 || ny >= g.ncy)) {
+    if (!g.per_y) return false;
+    sy = ny < 0 ? -g.ly : g.ly;
+    ny = ny < 0 ? ny + g.ncy : ny - g.ncy;
+  }
+  jbase = (g.dim == 3 ? nx * g.ncy + ny : nx) * g.nsub_pad * g.c;
+  return true;
+}
+
+// The length of a column cell's alive prefix (`ty`: its c type slots),
+// which is one past its last alive rank: a binary search over type > 0.5,
+// ceil(log2(c + 1)) reads at most. It rests on the column layout's
+// invariant (see the kernel).
+__device__ __forceinline__ int alive_prefix(const float* __restrict__ ty,
+                                            int c) {
+  int lo = 0, hi = c;  // ranks below lo alive, ranks from hi on dead
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (ty[mid] > 0.5f) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
 template <int SWEEP, int LAYOUT, int MIN_BLOCKS>
 __global__ void __launch_bounds__(kCellThreads, MIN_BLOCKS)
 cell_sweep_kernel(const float* __restrict__ fld,
@@ -120,11 +183,19 @@ cell_sweep_kernel(const float* __restrict__ fld,
                   int ld, float* __restrict__ out) {
   constexpr bool kQueued = SWEEP == SW_FORCE;
   constexpr bool kGate = SWEEP == SW_CGRAD;
+  constexpr bool kCol = LAYOUT == L_COLUMN;
   extern __shared__ float smem[];
-  // per staged sub-cell its live reach, and their running sum (a round's
-  // rows are the (sub-cell, rank) sequence's [base, base + ld))
-  __shared__ int reach[kMaxStagedCells];
-  __shared__ int off[kMaxStagedCells + 1];
+  // band: per staged sub-cell of the current neighbour column its live
+  // reach, and their running sum (a round's rows are the (sub-cell, rank)
+  // sequence's [base, base + ld))
+  __shared__ int reach[kCol ? 1 : kMaxStagedCells];
+  __shared__ int off[kCol ? 1 : kMaxStagedCells + 1];
+  // column: the live reach of every staged cell of the block, all
+  // neighbour columns at once; cgrad also each cell's first slot and the
+  // running sum of the cells' alive prefixes
+  __shared__ int creach[kCol ? kColStaged : 1];
+  __shared__ int cfirst[kCol && kGate ? kColStaged : 1];
+  __shared__ int cpre[kCol && kGate ? kColStaged + 1 : 1];
   __shared__ float wbox[kCellThreads / 32][6];
   __shared__ unsigned wtypes[kCellThreads / 32];
   __shared__ WarpBox bbox;
@@ -147,6 +218,28 @@ cell_sweep_kernel(const float* __restrict__ fld,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const unsigned wmask = 0xffffffffu;
+  const bool dim3 = g.dim == 3;
+  const int cx = dim3 ? col / g.ncy : col;
+  const int cy = dim3 ? col - cx * g.ncy : 0;
+  const int oy_reach = dim3 ? 1 : 0;
+  const int nsw = g.G + 2 * g.k;
+  const int sub0 = grp * g.G - g.k;  // first staged sub-cell
+  const int ncs = kCol ? (dim3 ? 9 : 3) * 3 : 0;  // column: staged cells
+  if (kCol) {
+    // each staged cell's alive prefix, one thread a cell (published by the
+    // barrier below); 0 past a non-periodic edge
+    for (int t = threadIdx.x; t < ncs; t += blockDim.x) {
+      const int kk = t / 3;
+      int jbase = 0, sub = sub0 + t - 3 * kk;
+      float sx, sy, sz;
+      const bool ok = nbr_column(g, cx, cy, dim3 ? kk / 3 - 1 : kk - 1,
+                                 dim3 ? kk % 3 - 1 : 0, jbase, sx, sy) &&
+                      wrap_sub(g, sub, sz);
+      const int first = ok ? jbase + sub * g.c : 0;
+      creach[t] = ok ? alive_prefix(fld + RTYPE * n + first, g.c) : 0;
+      if (kGate) cfirst[t] = first;
+    }
+  }
   IRow ir{};
   if (alive) {
     ir = load_i<SWEEP>(fld, n, i, tb, p, (p.flags & FL_ST) != 0);
@@ -176,7 +269,7 @@ cell_sweep_kernel(const float* __restrict__ fld,
   if (threadIdx.x == 0) {
     // the block's box: the union of its warps' (a dead warp's is empty),
     // and its colour gate from the union of their types; the first
-    // neighbour column's barrier publishes both
+    // barrier after it publishes both
     unsigned bset = 0u;
     for (int a = 0; a < 3; ++a) {
       bbox.lo[a] = kBoxFar;
@@ -191,76 +284,118 @@ cell_sweep_kernel(const float* __restrict__ fld,
     }
     bbox.set_radius(rc);
     if (kGate) bgate = unlike_types(bset, tb);
+    if (kCol && kGate) {
+      // the alive prefixes' running sum; the pass below takes each cell's
+      // reach anew
+      cpre[0] = 0;
+      for (int t = 0; t < ncs; ++t) {
+        cpre[t + 1] = cpre[t] + creach[t];
+        creach[t] = 0;
+      }
+    }
+  }
+  if (kCol && kGate) {
+    // column cgrad: per staged cell one past the last rank of its alive
+    // prefix that the block's gate keeps, per warp and cell from its
+    // highest such lane; the prefixes of all neighbour columns in one pass
+    __syncthreads();
+    const int total = cpre[ncs];
+    for (int w0 = 0; w0 < total; w0 += blockDim.x) {
+      const int w = w0 + threadIdx.x;
+      int t = -1, r = 0;
+      bool live = false;
+      if (w < total) {
+        int lo = 0, hi = ncs;  // cpre[lo] <= w < cpre[hi]
+        while (hi - lo > 1) {
+          const int mid = (lo + hi) >> 1;
+          if (cpre[mid] <= w) lo = mid; else hi = mid;
+        }
+        t = lo;
+        r = w - cpre[lo];
+        const float tj = fld[RTYPE * n + cfirst[t] + r];
+        live = tj > 0.5f && gate_keeps(bgate, tj);
+      }
+      const unsigned same = __match_any_sync(wmask, t);
+      const unsigned hit = __ballot_sync(wmask, live) & same;
+      if (live && lane == 31 - __clz(hit)) atomicMax(&creach[t], r + 1);
+    }
+    __syncthreads();
   }
   float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   bool staged = false;  // any candidate row in any neighbour column
 
-  const bool dim3 = g.dim == 3;
-  const int cx = dim3 ? col / g.ncy : col;
-  const int cy = dim3 ? col - cx * g.ncy : 0;
-  const int oy_reach = dim3 ? 1 : 0;
-  const int nsw = g.G + 2 * g.k;
-  const int sub0 = grp * g.G - g.k;  // first staged sub-cell
   for (int ox = -1; ox <= 1; ++ox) {
     for (int oy = -oy_reach; oy <= oy_reach; ++oy) {
       // the neighbour column and its plane shift (uniform over the block)
-      int nx = cx + ox, ny = cy + oy;
-      float sx = 0.f, sy = 0.f;
-      if (nx < 0 || nx >= g.ncx) {
-        if (!g.per_x) continue;
-        sx = nx < 0 ? -g.lx : g.lx;
-        nx = nx < 0 ? nx + g.ncx : nx - g.ncx;
-      }
-      if (dim3 && (ny < 0 || ny >= g.ncy)) {
-        if (!g.per_y) continue;
-        sy = ny < 0 ? -g.ly : g.ly;
-        ny = ny < 0 ? ny + g.ncy : ny - g.ncy;
-      }
-      const int jbase = (dim3 ? nx * g.ncy + ny : nx) * col_slots;
-
-      __syncthreads();  // the previous column's readers are done
-      for (int d = threadIdx.x; d < nsw; d += blockDim.x) reach[d] = 0;
-      __syncthreads();
-      // live reach: per warp and staged sub-cell, its highest candidate
-      // lane (a candidate: alive and, for cgrad, kept by the block's gate)
-      for (int w0 = 0; w0 < nsw * g.c; w0 += blockDim.x) {
-        const int w = w0 + threadIdx.x;
-        const int d = w / g.c;
-        const int r = w - d * g.c;
-        int sub = sub0 + d;
-        float sz;
-        bool live = w < nsw * g.c && wrap_sub(g, sub, sz);
-        if (live) {
-          const float tj = fld[RTYPE * n + jbase + sub * g.c + r];
-          live = tj > 0.5f && (!kGate || gate_keeps(bgate, tj));
+      int jbase;
+      float sx, sy;
+      if (!nbr_column(g, cx, cy, ox, oy, jbase, sx, sy)) continue;
+      int total, c1 = 0, c2 = 0;
+      if (kCol) {
+        // its three staged cells' reach, as running sums; a column with
+        // no candidate is skipped (uniform over the block)
+        const int* rr = creach + 3 * ((ox + 1) * (2 * oy_reach + 1) + oy +
+                                      oy_reach);
+        c1 = rr[0];
+        c2 = c1 + rr[1];
+        total = c2 + rr[2];
+        if (total == 0) continue;
+        __syncthreads();  // the previous column's readers are done
+      } else {
+        __syncthreads();  // the previous column's readers are done
+        for (int d = threadIdx.x; d < nsw; d += blockDim.x) reach[d] = 0;
+        __syncthreads();
+        // live reach: per warp and staged sub-cell, its highest candidate
+        // lane (a candidate: alive and, for cgrad, kept by the block's
+        // gate)
+        for (int w0 = 0; w0 < nsw * g.c; w0 += blockDim.x) {
+          const int w = w0 + threadIdx.x;
+          const int d = w / g.c;
+          const int r = w - d * g.c;
+          int sub = sub0 + d;
+          float sz;
+          bool live = w < nsw * g.c && wrap_sub(g, sub, sz);
+          if (live) {
+            const float tj = fld[RTYPE * n + jbase + sub * g.c + r];
+            live = tj > 0.5f && (!kGate || gate_keeps(bgate, tj));
+          }
+          const unsigned same =
+              __match_any_sync(wmask, w < nsw * g.c ? d : -1);
+          const unsigned hit = __ballot_sync(wmask, live) & same;
+          if (live && lane == 31 - __clz(hit)) atomicMax(&reach[d], r + 1);
         }
-        const unsigned same = __match_any_sync(wmask, w < nsw * g.c ? d : -1);
-        const unsigned hit = __ballot_sync(wmask, live) & same;
-        if (live && lane == 31 - __clz(hit)) atomicMax(&reach[d], r + 1);
+        __syncthreads();
+        if (threadIdx.x == 0) {
+          off[0] = 0;
+          for (int d = 0; d < nsw; ++d) off[d + 1] = off[d] + reach[d];
+        }
+        __syncthreads();
+        total = off[nsw];
       }
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        off[0] = 0;
-        for (int d = 0; d < nsw; ++d) off[d + 1] = off[d] + reach[d];
-      }
-      __syncthreads();
-      const int total = off[nsw];
       staged = staged || total > 0;
       for (int base = 0; base < total; base += ld) {
         const int rows = min(ld, total - base);
         if (base > 0) __syncthreads();  // the previous round's readers
         for (int q = threadIdx.x; q < rows; q += blockDim.x) {
-          // the staged sub-cell of sequence row base + q
+          // the staged sub-cell of sequence row base + q, and its rank
           const int pos = base + q;
-          int lo = 0, hi = nsw;  // off[lo] <= pos < off[hi]
-          while (hi - lo > 1) {
-            const int mid = (lo + hi) >> 1;
-            if (off[mid] <= pos) lo = mid; else hi = mid;
+          int lo, r;
+          if (kCol) {
+            lo = (pos >= c1) + (pos >= c2);
+            r = pos - (lo == 0 ? 0 : lo == 1 ? c1 : c2);
+          } else {
+            int hi = nsw;  // off[lo] <= pos < off[hi]
+            lo = 0;
+            while (hi - lo > 1) {
+              const int mid = (lo + hi) >> 1;
+              if (off[mid] <= pos) lo = mid; else hi = mid;
+            }
+            r = pos - off[lo];
           }
           int sub = sub0 + lo;
           float sz;
           wrap_sub(g, sub, sz);
-          const int j = jbase + sub * g.c + (pos - off[lo]);
+          const int j = jbase + sub * g.c + r;
           // 3D: the column axis is z; 2D: it is y, and z is not shifted
           const float shy = dim3 ? sy : sz, shz = dim3 ? sz : 0.f;
           const float tj = fld[RTYPE * n + j];

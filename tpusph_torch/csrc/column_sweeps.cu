@@ -16,24 +16,28 @@
 // zero with type 0. The output is the (8, n_slots) matrix with the O* row
 // meanings; the wrapper zeroes it, and an empty i cell writes nothing.
 //
-// Work split. Force: cell_sweep.cuh's queued sweep, the layout with G = 1,
-// k = 1, c = cap and nsub_pad = ncz (a block per cell and chunk of up to
-// 128 ranks; per neighbour column the three cells staged to their live
-// reach, each warp's box filter, exact tests and pair queue). Rho and
-// colour gradient: the one-pass scan below, column_sweep_kernel, one block
-// per i cell, one thread per slot of the cell (blockDim = cap rounded up
-// to a warp). For each of the 9 (3D) / 3 (2D) neighbour columns the block
-// stages the three cells cz-1, cz, cz+1 of that column (3*cap rows) in
-// shared memory, with the image shift added to the positions: the plane
-// shift of a periodic wrap across x (and y in 3D), and the column-axis
-// shift of a periodic wrap in cz. A neighbour column past a non-periodic
-// plane edge is skipped (the reference reads an all-dead sentinel column
-// there), and a cell past a non-periodic column end is staged as no
-// candidate (the reference's zvalid mask). Every thread then scans the
-// staged rows for its own slot, each cell's only as far as its last live
-// row. Its force instantiation is kept as column_force_scan_launch, the
-// check the queued force is held to bit for bit (chip_smoke.py, the card
-// tests); no path of the port launches it.
+// Work split. All three sweeps: cell_sweep.cuh's filtered sweep, the
+// layout with G = 1, k = 1, c = cap and nsub_pad = ncz (a block per cell
+// and chunk of up to 128 ranks; each staged cell's live reach from its
+// alive prefix, a binary search over its types, and for the colour
+// gradient the colour gate's ballot pass over those prefixes; per
+// neighbour column the three cells staged to their reach, each warp's box
+// filter and exact tests; force then runs the warp pair queue, rho and
+// the colour gradient add each live pair at once). The one-pass scan
+// below, column_sweep_kernel, serves only the check kernels
+// column_{rho,cgrad,force}_scan_launch, which the filtered sweeps are
+// held to bit for bit (chip_smoke.py, the card tests); no path of the
+// port launches them. It runs one block per i cell, one thread per slot
+// of the cell (blockDim = cap rounded up to a warp). For each of the 9
+// (3D) / 3 (2D) neighbour columns the block stages the three cells cz-1,
+// cz, cz+1 of that column (3*cap rows) in shared memory, with the image
+// shift added to the positions: the plane shift of a periodic wrap across
+// x (and y in 3D), and the column-axis shift of a periodic wrap in cz. A
+// neighbour column past a non-periodic plane edge is skipped (the
+// reference reads an all-dead sentinel column there), and a cell past a
+// non-periodic column end is staged as no candidate (the reference's
+// zvalid mask). Every thread then scans the staged rows for its own slot,
+// each cell's only as far as its last live row.
 //
 // Pair mask, the TPU kernel's: type_i > 0.5, type_j > 0.5, rsq > 1e-12.
 // Rows that are no candidate (dead slots, cells past an edge) are staged at
@@ -44,13 +48,14 @@
 // of which ~110 lie within the cutoff. The one-pass scan tests every
 // candidate in every lane and runs the pair body in lockstep wherever any
 // lane of the warp has a live pair; its blocks are as wide as the cap, so
-// at cap 280 most of their warps hold no alive row. It rejects a
-// candidate after three shared loads and one compare, before any table
-// lookup; per-j terms (EOS p/rho^2, sound speed, 1/rho, tension norms) are
-// computed once while staging; coefficient tables sit in shared memory.
-// The queued force runs the body 32 live pairs a pass instead, in blocks
-// cut to the live ranks (cell_sweep.cuh). Built without fast-math: IEEE
-// divides and square roots.
+// at cap 280 most of their warps hold no alive row, and it reads the
+// types of 3 x cap slots per neighbour column. The filtered sweeps run in
+// blocks cut to the live ranks, read ~7-9 types a staged cell to find its
+// reach, test a warp's box before the exact tests, and the colour
+// gradient stages only rows near an interface (cell_sweep.cuh). Per-j
+// terms (EOS p/rho^2, sound speed, 1/rho, tension norms) are computed
+// once while staging; coefficient tables sit in shared memory. Built
+// without fast-math: IEEE divides and square roots.
 
 #include <cuda_runtime.h>
 
@@ -205,27 +210,41 @@ int launch(const float* fld, const float* tab2, const float* tab1,
   fld, tab2, tab1, out, n_slots, ncx, ncy, ncz, cap, dim, per_x, per_y,     \
       per_col, kern, flags, T1, lx, ly, lcol, cutmax2, stream
 
-extern "C" int column_rho_launch(COLUMN_ARGS) {
-  return launch<SW_RHO>(COLUMN_PASS);
-}
-
-extern "C" int column_cgrad_launch(COLUMN_ARGS) {
-  return launch<SW_CGRAD>(COLUMN_PASS);
-}
-
-// the queued force sweep (cell_sweep.cuh)
-extern "C" int column_force_launch(COLUMN_ARGS) {
+// the filtered sweeps (cell_sweep.cuh) under the one-pass launcher's
+// limits (launch_cell_sweep checks the rest)
+template <int SWEEP>
+int launch_filtered(COLUMN_ARGS) {
   const long long ncells = (long long)ncx * ncy * ncz;
   if (cap < 1 || cap > kMaxThreads || ncells * cap != n_slots) {
     return (int)cudaErrorInvalidConfiguration;
   }
   const CellGeo g{n_slots, ncx, ncy, ncz, 1, cap, 1, dim, per_x, per_y,
                   per_col, lx, ly, lcol};
-  return launch_cell_sweep<SW_FORCE, L_COLUMN>(
+  return launch_cell_sweep<SWEEP, L_COLUMN>(
       g, Phys{dim, kern, flags, T1, cutmax2}, fld, tab2, tab1, out, stream);
 }
 
-// the one-pass force sweep: the check the queued one is held to
+extern "C" int column_rho_launch(COLUMN_ARGS) {
+  return launch_filtered<SW_RHO>(COLUMN_PASS);
+}
+
+extern "C" int column_cgrad_launch(COLUMN_ARGS) {
+  return launch_filtered<SW_CGRAD>(COLUMN_PASS);
+}
+
+extern "C" int column_force_launch(COLUMN_ARGS) {
+  return launch_filtered<SW_FORCE>(COLUMN_PASS);
+}
+
+// the one-pass scans: the checks the filtered sweeps are held to
+extern "C" int column_rho_scan_launch(COLUMN_ARGS) {
+  return launch<SW_RHO>(COLUMN_PASS);
+}
+
+extern "C" int column_cgrad_scan_launch(COLUMN_ARGS) {
+  return launch<SW_CGRAD>(COLUMN_PASS);
+}
+
 extern "C" int column_force_scan_launch(COLUMN_ARGS) {
   return launch<SW_FORCE>(COLUMN_PASS);
 }

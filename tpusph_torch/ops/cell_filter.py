@@ -5,7 +5,11 @@ chip_smoke.py and the tests, never on the main path.
 
 Both layouts are the band's shape (``as_band``): the column grid is the
 band layout with G = 1, k = 1, c = cap and nsub_pad = ncz, so the counts
-take the kernel's windows from ``band_pair._band_windows`` for either.
+take the kernel's windows from ``band_pair._band_windows`` for either. The
+two differ in how the kernel finds a staged sub-cell's live reach: on the
+band by reading every slot's type, on the column grid by a binary search
+for the cell's alive prefix (``alive_prefix``), which the layout's
+invariant makes its reach.
 """
 
 from __future__ import annotations
@@ -47,6 +51,27 @@ def block_threads(geom: BandGeometry) -> int:
     return min(CELL_THREADS, -(-geom.gc // 32) * 32)
 
 
+def alive_prefix(typ: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's binary search (``alive_prefix`` in csrc/cell_sweep.cuh)
+    on each row of ``typ`` (M, c), the types of a cell's c slots: (the
+    length of its alive prefix, the types read to find it), each (M,).
+    Where the alive slots are a prefix, the length is one past the last
+    alive slot."""
+    m, c = typ.shape
+    lo = torch.zeros(m, dtype=torch.long, device=typ.device)
+    hi = torch.full_like(lo, c)
+    reads = torch.zeros_like(lo)
+    while True:
+        act = lo < hi
+        if not bool(act.any()):
+            return lo, reads
+        mid = (lo + hi) // 2
+        up = typ.gather(1, mid.clamp(max=c - 1)[:, None])[:, 0] > 0.5
+        reads += act.long()
+        lo = torch.where(act & up, mid + 1, lo)
+        hi = torch.where(act & ~up, mid, hi)
+
+
 def _boxes(x, alive, rc):
     """Bounding boxes of the alive rows along dim 1 of x (B, L, 3), alive
     (B, L), and their filter radius squared (``strip_pair.box_r2``)."""
@@ -85,6 +110,13 @@ def cell_pass_counts(fld: torch.Tensor, layout, cut2: float,
     colour differs from one of the block's alive rows'); the live reach is
     one past the last candidate rank:
       rows / warps    alive i rows / warps that hold one;
+      reach_reads     types the alive blocks read to find their staged
+                      sub-cells' live reach: the band every slot of each
+                      (c a sub-cell); the column grid each cell's binary
+                      search for its alive prefix, and for cgrad then
+                      each prefix slot (the gate's ballot pass);
+      ballot_reads    what a ballot pass over every slot reads (the band's
+                      reach_reads; the column grid's before the search);
       blocks          blocks launched; blocks_alive: those with an alive
                       row (the rest exit at their first barrier);
                       gate_exits: alive blocks with no candidate in any
@@ -133,7 +165,8 @@ def cell_pass_counts(fld: torch.Tensor, layout, cut2: float,
     if gated and colors is None:
         raise ValueError("the colour gradient's counts need the colours")
     counts = dict(rows=0, warps=0, blocks=nblk * nch, blocks_alive=0,
-                  gate_exits=0, candidates=0, staged_rows=0,
+                  reach_reads=0, ballot_reads=0, gate_exits=0,
+                  candidates=0, staged_rows=0,
                   staged_with_terms=0, rounds=0, multi_round_windows=0,
                   box_survivors=0, live_pairs=0, needed_pairs=0,
                   old_passes=0, queue_passes=0, body_passes=0,
@@ -141,12 +174,21 @@ def cell_pass_counts(fld: torch.Tensor, layout, cut2: float,
 
     alive = fld[RTYPE] > 0.5
     typ = fld[RTYPE].long()
-    # each sub-cell's live reach, and each block's staged sub-cells'
-    reach = (alive.reshape(-1, c).long()
-             * torch.arange(1, c + 1, device=dev)).amax(1)
+    # each sub-cell's live reach (the column grid's: its alive prefix) and
+    # the types read to find it, and each block's staged sub-cells'
+    if isinstance(layout, BandGeometry):
+        reach = (alive.reshape(-1, c).long()
+                 * torch.arange(1, c + 1, device=dev)).amax(1)
+        reads = torch.full_like(reach, c)
+    else:
+        reach, reads = alive_prefix(fld[RTYPE].reshape(-1, c))
+        if gated:
+            reads = reads + reach
     wbase, wshift = (torch.as_tensor(a, device=dev)
                      for a in _band_windows(geom))          # (nblk, S(, 3))
-    reach_s = torch.where(wbase >= 0, reach[wbase.clamp(min=0) // c], 0)
+    valid = wbase >= 0
+    reach_s = torch.where(valid, reach[wbase.clamp(min=0) // c], 0)
+    reads_s = torch.where(valid, reads[wbase.clamp(min=0) // c], 0)
     R = max(int(reach.max()), 1)
 
     # the i rows of each group, padded to its chunks' warps
@@ -179,6 +221,9 @@ def cell_pass_counts(fld: torch.Tensor, layout, cut2: float,
     counts["rows"] = int(alive_i.sum())
     counts["warps"] = int(warp_alive.sum())
     counts["blocks_alive"] = int(chunk_alive.sum())
+    blk_alive = chunk_alive.reshape(nblk, nch).sum(1)
+    counts["reach_reads"] = int((blk_alive * reads_s.sum(1)).sum())
+    counts["ballot_reads"] = int((blk_alive * valid.sum(1)).sum()) * c
     counts["candidates"] = int((alive_i.sum(1) * reach_s.sum(1)).sum())
 
     r = torch.arange(R, device=dev)

@@ -57,7 +57,8 @@ _BAND_INT_ARGS = ("n_slots", "ncx", "ncy", "nsub_pad", "G", "c", "k", "dim",
 _COMPACT_INT_ARGS = _INT_ARGS + ("P",)
 # the launchers of the column and band libraries: each sweep and its
 # one-pass check kernels
-LAUNCHERS = {"column": ("rho", "cgrad", "force", "force_scan"),
+LAUNCHERS = {"column": ("rho", "cgrad", "force", "rho_scan", "cgrad_scan",
+                        "force_scan"),
              "band": ("rho", "cgrad", "force", "rho_scan", "cgrad_scan",
                       "force_scan")}
 

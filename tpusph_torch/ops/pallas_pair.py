@@ -187,20 +187,27 @@ class ColumnSweepKernel:
 
     On the card the sweeps are bound by instruction throughput: each i row
     has 27 cells of candidates (~1,700 rows to the cells' live reach at the
-    1M bench's ~64 rows a cell), ~110 of them within the cutoff. The force
-    sweep filters before it computes (``csrc/cell_sweep.cuh``): a block
-    per cell and chunk of up to 128 ranks, so the chunks past a cell's
-    alive rows exit at once and a cap set by one dense cell costs the
-    other cells nothing; per neighbour column the three cells staged to
-    their live reach, a warp's box filter, each lane's exact test of the
-    survivors, and a warp pair queue that runs the body 32 live pairs a
-    pass, each row adding its pairs in the one-pass scan's order (the same
-    bits). ``cell_filter.cell_pass_counts`` gives those counts on a layout.
-    Rho and colour gradient keep the one-pass scan: a block per cell as
-    wide as the cap, every lane scanning every candidate to the cells'
-    live reach. The one-pass force scan is ``column_force_scan``
-    (launcher ``force_scan``), a check kernel that no path launches: the
-    queued force is held to it bit for bit on the card."""
+    1M bench's ~64 rows a cell), ~110 of them within the cutoff. All three
+    sweeps filter before they compute (``csrc/cell_sweep.cuh``, the band's
+    kernel on the column layout): a block per cell and chunk of up to 128
+    ranks, so the chunks past a cell's alive rows exit at once and a cap
+    set by one dense cell costs the other cells nothing. A cell's alive
+    rows are a prefix of its ranks (``grid.build`` sorts them first,
+    ``pack_dense`` drops the rest, an insertion forces a rebuild first), so
+    the block finds each staged cell's live reach by a binary search over
+    its types, not by reading the cap. Per neighbour column the three
+    cells are staged to their reach; a warp's box filter and each lane's
+    exact test of the survivors follow. Force runs a warp pair queue, the
+    body 32 live pairs a pass; rho and the colour gradient add each live
+    pair at once, and the colour gradient stages only rows of a colour
+    unlike one of the block's alive rows (its ballot pass over the alive
+    prefixes only), so a block far from an interface exits unwritten.
+    Each row adds its pairs in the one-pass scan's order (the same bits);
+    ``cell_filter.cell_pass_counts`` gives the phases' counts. The
+    one-pass scans are ``column_rho_scan``, ``column_cgrad_scan`` and
+    ``column_force_scan`` (``SCANS``, launchers ``*_scan``), check
+    kernels that no path launches: the filtered sweeps are held to them
+    bit for bit on the card."""
 
     def __init__(self, sweep: str, launcher: str | None = None):
         self.sweep = sweep
@@ -238,8 +245,12 @@ column_cgrad = ColumnSweepKernel("cgrad")
 column_force = ColumnSweepKernel("force")
 # every kernel wrapper of the column backend, by sweep (launch counts)
 KERNELS = {"rho": column_rho, "cgrad": column_cgrad, "force": column_force}
-# the one-pass force scan: on no path, the queued force's bitwise check
+# the one-pass scans: on no path, the filtered sweeps' bitwise checks
+column_rho_scan = ColumnSweepKernel("rho", "rho_scan")
+column_cgrad_scan = ColumnSweepKernel("cgrad", "cgrad_scan")
 column_force_scan = ColumnSweepKernel("force", "force_scan")
+SCANS = {"rho": column_rho_scan, "cgrad": column_cgrad_scan,
+         "force": column_force_scan}
 
 
 # --------------------------------------------------------------------------

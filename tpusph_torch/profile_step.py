@@ -30,17 +30,15 @@ from tpusph_torch.bench import build_bench_sim, card_info, run_bench
 # the hand-written kernels by their names in tpusph_torch.ops.all_kernels;
 # a sweep kernel's template argument is the Sweep enum (rho 0, cgrad 1,
 # force 2); the strip rho and force sweeps are strip_filter_kernel, whose
-# second template argument is its blocks per SM; the column force and the
+# second template argument is its blocks per SM; the three column and the
 # three band sweeps are cell_sweep_kernel<sweep, layout (column 0, band
-# 1), blocks per SM>; the one-pass column_sweep_kernel's force
-# instantiation is the check kernel column_force_scan, and every
-# band_sweep_kernel is a check kernel band_{sweep}_scan
+# 1), blocks per SM>; every one-pass column_sweep_kernel and
+# band_sweep_kernel is a check kernel {column,band}_{sweep}_scan
 SWEEPS = ("rho", "cgrad", "force")
 LAYOUTS = ("column", "band")
 KERNEL_NAMES = tuple(f"{b}_{s}" for b in ("strip", "column", "band")
-                     for s in SWEEPS) + (
-    "strip_vapor", "column_force_scan",
-    *(f"band_{s}_scan" for s in SWEEPS))
+                     for s in SWEEPS) + ("strip_vapor",) + tuple(
+    f"{b}_{s}_scan" for b in LAYOUTS for s in SWEEPS)
 _SWEEP = re.compile(
     r"(strip|column|band)_(?:sweep|filter)_kernel<(?:\(int\))?(\d)[,>]")
 _CELL_SWEEP = re.compile(
@@ -57,8 +55,7 @@ def _kernel_of(name: str) -> str | None:
     if not m:
         return None
     kind, sweep = m.group(1), SWEEPS[int(m.group(2))]
-    scan = kind == "band" or (kind == "column" and sweep == "force")
-    return f"{kind}_{sweep}_scan" if scan else f"{kind}_{sweep}"
+    return f"{kind}_{sweep}" if kind == "strip" else f"{kind}_{sweep}_scan"
 
 
 def profile_window(mode: str, n_particles: int, steps: int,
