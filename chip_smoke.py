@@ -20,7 +20,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                lists and with the warp pair queue), and fails if a live
                pair lies outside its warp's box in that host copy of the
                kernels' filter (the kernels' own filter is held by phase 6's
-               bitwise comparison).
+               bitwise comparison). The colour-gradient kernel (its warp
+               box filter and colour gate) is also held against its
+               one-pass check kernel (strip_cgrad_scan_launch) on the same
+               inputs: fails if any alive row differs bitwise, times both
+               in turns (new, check, check, new; fails unless the new one
+               is the faster), and prints its counts (warp_pass_counts
+               with the colours: blocks that exit on the gate, rows staged
+               with their terms, box survivors, needed pairs, body passes;
+               fails on a needed pair outside its warp's or its block's
+               box or gate).
   4. dynamic — resets the kernels' launch counts, runs the `dynamic` bench
                (tpusph_torch.bench.run_bench: Simulation.run with warmup and
                timed windows), reads the counts, and checks every sweep was
@@ -49,8 +58,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   9. kernels — on the bench `boiling` state after the initial strip build
                (column headroom 1.35, the T_sat-pinned heat branch), the
                three sweeps as in phase 3 and the vapor sweep's kernel
-               against its plain version: count, both slots and both rsq
-               equal on every alive row.
+               against its plain version and its one-pass check kernel
+               (strip_vapor_scan_launch): count, both slots and both rsq
+               equal on every slot; the kernel and the check kernel timed
+               in turns as in phase 3, with the counts of the kernel's
+               type gate and boxes (strip_pair.vapor_pass_counts; fails on
+               a needed pair outside a box or the gate).
  10. boiling — resets the counts, runs the `boiling` bench (fix
                phase_change), and checks all four kernels were launched,
                particles were inserted and the vapour count grew by as
@@ -83,7 +96,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                backend="pallas", and checks the three column kernels were
                launched and no other was (the strip's and the one-pass
                check kernels column_{rho,cgrad,force}_scan included: every
-               main path asserts them at 0), plus phase 10's ledgers.
+               main path asserts every check kernel, strip_cgrad_scan and
+               strip_vapor_scan among them, at 0), plus phase 10's
+               ledgers.
  15. column  — phase 13 again on the layout after the column path, and the
                cell-grid vapor query's time per firing.
  16. column slice — the 12^3 bubble on the column kernel, GPU against CPU.
@@ -119,11 +134,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 Prints the five bench JSON lines, one JSON line of the kernels (launches
 on the boiling paths, the band path and the compacted sweep's two paths;
 times and bounds from phases 11, 15, 19 and 6, the largest error of all
-comparisons; for the three column and the three band kernels also the
-one-pass check kernel's time in turns, the rows that differ bitwise from
-it and the counts of their phases), and as the last line {"ok": true,
-"device": {...}}. The check kernels are on no path and have no line of
-their own.
+comparisons; for the strip colour-gradient and vapor kernels and the
+three column and the three band kernels also the one-pass check kernel's
+time in turns, the rows that differ bitwise from it and the counts of
+their phases), and as the last line {"ok": true, "device": {...}}. The
+check kernels are on no path and have no line of their own.
 """
 
 from __future__ import annotations
@@ -232,6 +247,27 @@ def pass_counts(label, fld, win, delta, geom, cut2):
     return c
 
 
+def gated_counts(label, c):
+    """The counts of a gated strip kernel (``strip_pair.warp_pass_counts``
+    with the colours, ``strip_pair.vapor_pass_counts``), printed with the
+    ratios that decide its design; the host copy of its boxes and gate must
+    keep every pair it needs. Returns the counts."""
+    rows, warps = max(c["rows"], 1), max(c["warps"], 1)
+    print(f"  {label} counts: {json.dumps(c)}")
+    print(f"  {label}: {c['rows']} rows summed; per row "
+          f"{c['candidates'] / rows:.1f} one-pass candidates, "
+          f"{c['live_pairs'] / rows:.1f} live pairs, "
+          f"{c['needed_pairs'] / rows:.2f} needed; blocks {c['blocks']}, "
+          f"{c['gate_exits']} of them with no candidate; "
+          f"{c['staged_rows']} rows read at staging of which "
+          f"{c['staged_with_terms']} staged as candidates; per warp "
+          f"{c['box_survivors'] / warps:.1f} box survivors, body passes "
+          f"{c['old_passes'] / warps:.1f} lockstep, "
+          f"{c['body_passes'] / warps:.1f} in the kernel")
+    assert c["live_outside_box"] == 0, c
+    return c
+
+
 def bound(name, n_rows, ops):
     """(bound_ms, bound_by) of one launch over ``n_rows`` owned alive
     particles (each input row read once, each output row written once; the
@@ -305,7 +341,8 @@ def hold_to_plain(sim, names, after_run=False, reps=10):
     from tpusph_torch.ops import strip_pair
     from tpusph_torch.ops.band_pair import pack_fields
     from tpusph_torch.ops.rows import (
-        OCGX, OCGY, ODE, ODRHO, OFX, OFY, OFZ, ORHO, RCGX, RCGZ, RMIX, RRHO)
+        OCGX, OCGY, ODE, ODRHO, OFX, OFY, OFZ, ORHO, RCGX, RCGZ, RMIX, RRHO,
+        RTYPE, TABLES_1D)
 
     backend, state, aux, tabs = layout_state(sim, after_run)
     geom, spec = backend.geom, sim.spec
@@ -323,13 +360,19 @@ def hold_to_plain(sim, names, after_run=False, reps=10):
         mixed = {th: live_pairs(fld, backend.win, aux.delta, geom, cut2, own,
                                 keep=lambda pi, pj, th=th: fld[RMIX][pi] > th)
                  for th in (0.25, 0.75)}
+        # the colour gradient is summed over the pairs of unlike types of
+        # the rows of tiles flagged mixed
+        typ = fld[RTYPE]
+        unlike = live_pairs(fld, backend.win, aux.delta, geom, cut2, own,
+                            keep=lambda pi, pj: (fld[RMIX][pi] > 0.75)
+                            & (typ[pi] != typ[pj]))
         ops = {"rho": PAIR_OPS["rho"] * npairs,
-               "cgrad": PAIR_OPS["cgrad"] * mixed[0.75],
+               "cgrad": PAIR_OPS["cgrad"] * unlike,
                "force": PAIR_OPS["force"] * npairs
                + PAIR_OPS["force_st"] * mixed[0.25]}
         print(f"  live pairs {npairs} ({npairs / n_own:.1f} per particle), "
               f"in tiles flagged > 0.25: {mixed[0.25]}, > 0.75: "
-              f"{mixed[0.75]}")
+              f"{mixed[0.75]}, of those of unlike types {unlike}")
         counts = pass_counts(f"W {geom.w} t_blk {geom.t_blk}", fld,
                              backend.win, aux.delta, geom, cut2)
     rows = {"rho": (ORHO,), "cgrad": (OCGX, OCGY, ODE),
@@ -351,6 +394,10 @@ def hold_to_plain(sim, names, after_run=False, reps=10):
             sweep, run_kernel, run_plain, n_own, ops[sweep], reps))
         if sweep != "cgrad":
             report[sweep]["warp_passes"] = counts
+        else:
+            report[sweep].update(cgrad_to_scan(
+                fld, tabs, backend, aux, spec, alive, out_k, run_kernel,
+                reps))
         if sweep == "rho":
             total = out_p[ORHO] * state.rmass if spec.rhosum_nd \
                 else out_p[ORHO]
@@ -363,10 +410,43 @@ def hold_to_plain(sim, names, after_run=False, reps=10):
     return report
 
 
+def cgrad_to_scan(fld, tabs, backend, aux, spec, alive, out_k, run_kernel,
+                  reps):
+    """The strip colour-gradient kernel against its one-pass check kernel
+    on the same inputs: no alive row may differ bitwise; both timed in
+    turns, the new one the faster; and the counts of its gated filter.
+    Returns the report's additions."""
+    import torch
+    from tpusph_torch.ops import strip_pair
+    from tpusph_torch.ops.rows import OCGX, OCGY, ODE, TABLES_1D
+
+    geom, scan = backend.geom, strip_pair.SCANS["cgrad"]
+
+    def run_scan():
+        return scan(fld, tabs, backend.win, aux.delta, geom, spec)
+
+    out_s = run_scan()
+    sel = [OCGX, OCGY, ODE]
+    differ = int((out_k[sel][:, alive].view(torch.int32)
+                  != out_s[sel][:, alive].view(torch.int32)).any(0).sum())
+    print(f"  cgrad: alive rows that differ bitwise between the filtered "
+          f"kernel and the one-pass check kernel: {differ} of "
+          f"{int(alive.sum())} (must be 0)")
+    assert differ == 0, ("strip cgrad", differ)
+    ms, scan_ms = in_turns("cgrad", run_kernel, run_scan, reps)
+    counts = gated_counts(
+        f"cgrad W {geom.w}", strip_pair.warp_pass_counts(
+            fld, backend.win, aux.delta, geom, tabs.cutmax2["cgrad"],
+            tabs.tab1[TABLES_1D.index("color")]))
+    return dict(ms_in_turns=ms, scan_ms=scan_ms, rows_differ_bitwise=differ,
+                warp_passes=counts)
+
+
 def vapor_to_plain(sim, backend, state, aux, own, reps):
-    """The vapor kernel vs its plain version as
-    ``StripBackend.vapor_neighbor`` calls it: every output row equal on
-    alive rows."""
+    """The vapor kernel vs its plain version and its one-pass check
+    kernel as ``StripBackend.vapor_neighbor`` calls it: every output row
+    equal on every slot; the kernel and the check kernel timed in turns
+    (the kernel the faster), with the counts of its gated filter."""
     import torch
     from tpusph_torch.ops import strip_pair
     from tpusph_torch.ops.band_pair import pack_fields
@@ -389,20 +469,32 @@ def vapor_to_plain(sim, backend, state, aux, own, reps):
         return strip_pair.plain_vapor_sweep(fld, backend.win, aux.delta,
                                             geom, cfg.vapor_type, cut)
 
+    def run_scan():
+        return strip_pair.SCANS["vapor"](fld, backend.win, aux.delta, geom,
+                                         cfg.vapor_type, cut)
+
     out_k = run_kernel()
     out_p = run_plain()
+    out_s = run_scan()
     torch.cuda.synchronize()
     alive = state.alive
-    errs = []
+    errs, differ = [], 0
     for r, what in ((ORHO, "count"), (OCGX, "nearest slot"),
                     (OCGY, "nearest rsq"), (OFX, "nearest owned slot"),
                     (OFY, "nearest owned rsq")):
-        a, b = out_k[r][alive], out_p[r][alive]
+        a, b = out_k[r], out_p[r]
         neq = int((a != b).sum())
-        errs.append(float((a - b).abs().max()))
-        print(f"  vapor {what}: {neq} of {a.numel()} alive rows differ "
-              f"(tolerance: none)")
-        assert neq == 0, (what, neq)
+        neq_s = int((a != out_s[r]).sum())
+        errs.append(float((a[alive] - b[alive]).abs().max()))
+        print(f"  vapor {what}: {neq} of {a.numel()} slots differ from the "
+              f"plain version, {neq_s} from the one-pass check kernel "
+              "(tolerance: none)")
+        assert neq == 0 and neq_s == 0, (what, neq, neq_s)
+        differ += neq_s
+    ms, scan_ms = in_turns("vapor", run_kernel, run_scan, reps)
+    counts = gated_counts(
+        f"vapor W {geom.w}", strip_pair.vapor_pass_counts(
+            fld, backend.win, aux.delta, geom, cfg.vapor_type, cut))
     nvap = int((out_p[ORHO][alive] > 0).sum())
     assert nvap > 0, "no row has a vapour neighbour"
     typ = fld[RTYPE]
@@ -410,9 +502,10 @@ def vapor_to_plain(sim, backend, state, aux, own, reps):
                         strip_pair._vapor_cut2(cut), own,
                         keep=lambda pi, pj: typ[pj] == cfg.vapor_type)
     print(f"  {nvap} rows with a vapour neighbour, {npairs} live pairs")
-    return dict(max_abs_err=max(errs), **timed(
-        "vapor", run_kernel, run_plain, int(own.sum()),
-        PAIR_OPS["vapor"] * npairs, reps))
+    return dict(max_abs_err=max(errs), ms_in_turns=ms, scan_ms=scan_ms,
+                rows_differ_bitwise=differ, warp_passes=counts, **timed(
+                    "vapor", run_kernel, run_plain, int(own.sum()),
+                    PAIR_OPS["vapor"] * npairs, reps))
 
 
 def hold_compact(sim, label, reps=10):

@@ -45,8 +45,8 @@ from tpusph_torch.ops import (band_pair, cell_filter, mxu_compact,
                               pallas_pair, strip_pair)
 from tpusph_torch.ops.band_pair import pack_fields
 from tpusph_torch.ops.rows import (
-    OCGX, OCGY, ODE, ODRHO, OFX, OFY, OFZ, ORHO, RCGX, RCGZ, RM, RRHO, RSLOT,
-    RTYPE, TABLES_1D)
+    OCGX, OCGY, ODE, ODRHO, OFX, OFY, OFZ, ORHO, RCGX, RCGZ, RM, RMIX, RRHO,
+    RSLOT, RTYPE, RX, RY, RZ, TABLES_1D)
 from tpusph_torch.params import PairTables, PhysicsSpec
 from tpusph_torch.state import Box, state_from_arrays
 
@@ -95,7 +95,8 @@ def lattice(dim, nside, periodic, seed, device, dx=0.5, jitter=True,
     more particles are packed into a cube of side 1.2 about (2.25, 2.25,
     2.25), inside one cell of the 12^3 lattice's grid. ``types``: "random"
     (1 or 2 at random), "sphere" (type 2 within L/5 of the box centre,
-    the bench's vapour sphere, type 1 elsewhere) or "one" (all type 1)."""
+    the bench's vapour sphere, type 1 elsewhere), "one" (all type 1) or
+    "vapour" (all type 2)."""
     rng = np.random.default_rng(seed)
     shape = shape or (nside,) * dim
     ax = [np.arange(m) * dx for m in shape]
@@ -119,6 +120,8 @@ def lattice(dim, nside, periodic, seed, device, dx=0.5, jitter=True,
                        < side.min() / 5, 2, 1)
     elif types == "one":
         typ = np.ones(n, np.int64)
+    elif types == "vapour":
+        typ = np.full(n, 2, np.int64)
     st = state_from_arrays(
         pts.astype(np.float32), typ, np.full(n, 0.1), v=v,
         rho=rng.uniform(0.9, 1.2, n), e=rng.uniform(0.5, 1.5, n),
@@ -304,13 +307,43 @@ def test_force_stage_on_card_matches_cpu(device):
         assert err <= rtol * float(a.abs().max()), (field, err)
 
 
-@pytest.mark.parametrize("dim,periodic,jitter", [
-    (3, True, True), (3, True, False), (3, False, True), (3, False, False),
-    (2, True, False), (2, False, True),
+def vapor_ties(fld, backend, aux, vtype, cut):
+    """Rows with two or more vapour rows at their minimum rsq."""
+    geom = backend.geom
+    pi, pj, psx, psy, _ = strip_pair._window_pairs(
+        fld, backend.win, aux.delta, geom, 0, geom.ncols,
+        strip_pair._vapor_cut2(cut))
+    keep = (fld[RTYPE][pj] == vtype) & (fld[RTYPE][pi] > 0.5)
+    pi, pj, psx, psy = pi[keep], pj[keep], psx[keep], psy[keep]
+    d = [fld[RX][pi] - (fld[RX][pj] + psx), fld[RY][pi] - (fld[RY][pj] + psy),
+         fld[RZ][pi] - fld[RZ][pj]]
+    rsq = (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]
+    mn = torch.full((geom.n_slots,), float("inf"), device=fld.device
+                    ).scatter_reduce(0, pi, rsq, "amin")
+    at = torch.bincount(pi[rsq == mn[pi]], minlength=geom.n_slots)
+    return int((at > 1).sum())
+
+
+@pytest.mark.parametrize("dim,periodic,jitter,types", [
+    (3, True, True, "random"), (3, True, False, "random"),
+    (3, False, True, "random"), (3, False, False, "random"),
+    (2, True, False, "random"), (2, False, True, "random"),
+    (3, True, True, "one"), (3, True, True, "vapour"),
+    (3, True, False, "sphere"),
 ])
-def test_vapor_kernel_matches_plain_exactly(device, dim, periodic, jitter):
-    st, box, tables = lattice(dim, 12 if dim == 3 else 40, periodic,
-                              seed=dim + 11, device=device, jitter=jitter)
+def test_vapor_kernel_matches_plain_exactly(device, dim, periodic, jitter,
+                                            types):
+    """The vapor kernel (the type gate, the block's and the warps' boxes)
+    exactly equal to its plain version and to its one-pass check kernel
+    on all five rows of every slot: exact lattices (ties at the minimum
+    rsq) and jittered ones, seam ghosts where the column axis is
+    periodic, no vapour row ("one": every block exits on the gate), every
+    row vapour, and a vapour sphere on an exact lattice (blocks without
+    vapour beside blocks with ties)."""
+    st, box, tables = lattice(dim, 16 if types == "sphere" else
+                              12 if dim == 3 else 40, periodic,
+                              seed=dim + 11, device=device, jitter=jitter,
+                              types=types)
     x = st.x[st.alive].cpu().numpy()
     geom = strip_pair.choose_strip_geometry(box, tables.max_cut(), dim, 0.2,
                                             x=x)
@@ -323,17 +356,120 @@ def test_vapor_kernel_matches_plain_exactly(device, dim, periodic, jitter):
     slot = torch.arange(geom.n_slots, dtype=torch.float32, device=device)
     fld[RSLOT] = torch.where(st.owned, slot, -slot - 1.0)
     cut = tables.max_cut()
-    kern = strip_pair.vapor_sweep
-    n0 = kern.launches
+    kern, scan = strip_pair.vapor_sweep, strip_pair.SCANS["vapor"]
+    n0, s0 = kern.launches, scan.launches
     out_k = kern(fld, backend.win, aux.delta, geom, 2, cut)
+    out_s = scan(fld, backend.win, aux.delta, geom, 2, cut)
     torch.cuda.synchronize()
-    assert kern.launches == n0 + 1
+    assert (kern.launches, scan.launches) == (n0 + 1, s0 + 1)
     out_p = strip_pair.plain_vapor_sweep(fld, backend.win, aux.delta, geom,
                                          2, cut)
-    alive = st.alive
-    assert bool((out_p[ORHO][alive] > 0).any())
+    hit = bool((out_p[ORHO][st.alive] > 0).any())
+    assert hit == (types != "one")
     for r in (ORHO, OCGX, OCGY, OFX, OFY):
-        assert torch.equal(out_k[r][alive], out_p[r][alive]), r
+        assert torch.equal(out_k[r], out_p[r]), r
+        assert torch.equal(out_k[r], out_s[r]), r
+    c = strip_pair.vapor_pass_counts(fld, backend.win, aux.delta, geom, 2,
+                                     cut)
+    assert c["live_outside_box"] == 0, c
+    if types == "one":
+        assert c["gate_exits"] == c["blocks"] > 0, c
+    elif types == "sphere":
+        assert 0 < c["gate_exits"] < c["blocks"], c
+    if not jitter and types != "one":
+        assert vapor_ties(fld, backend, aux, 2, cut) > 0
+
+
+def strip_cgrad_case(case, device):
+    """The strip layout of one card case of the colour-gradient kernel:
+    (backend, state, aux, fld, tables). Dense lattices (3D ~330
+    neighbours a row, 2D ~110), tiles of 48 or 16 rows (warps across two
+    tiles), a block of one 48-row tile (a second warp of 16 lanes), warps
+    of one alive row, a vapour sphere, one colour (the tiles flagged
+    mixed: every block exits on the gate) and 2D."""
+    dim, nside, periodic, kw, cand, t_blk = 3, 12, True, {}, None, None
+    if case == "dense3d":
+        nside, periodic = 0, (True, True, False)
+        kw = dict(hfac=4.5, shape=(20, 20, 12))
+    elif case == "dense2d":
+        dim, nside, kw = 2, 0, dict(hfac=6.0, shape=(40, 40))
+    elif case in ("tiles48", "warp16"):
+        cand, t_blk = ((48, 16),), 1 if case == "warp16" else None
+    elif case == "tiles16":
+        cand = ((16, 8),)
+    elif case == "sphere":
+        nside, kw = 16, dict(types="sphere")
+    elif case == "one":
+        kw = dict(types="one")
+    elif case == "2d":
+        dim, nside = 2, 40
+    st, box, tables = lattice(dim, nside, periodic, seed=dim + 71,
+                              device=device, **kw)
+    backend, st, aux = strip_layout(
+        st, box, tables, dim, device,
+        candidates=cand or strip_pair.DEFAULT_TS_CH, t_blk=t_blk)
+    if cand:
+        assert backend.geom.ts == cand[0][0]
+    fld = pack_fields(st, aux.mix)
+    if case == "one":
+        fld[RMIX] = 1.0
+    elif case == "one_alive":
+        geom = backend.geom
+        slots = torch.arange(geom.n_slots, device=device)
+        wid = strip_pair._warp_ids(slots, geom)
+        alive = fld[RTYPE] > 0.5
+        n_alive = torch.zeros(int(wid.max()) + 1, dtype=torch.long,
+                              device=device).index_add_(0, wid,
+                                                        alive.long())
+        thin = (wid % 4 == 0) & (n_alive[wid] == 32)
+        kill = thin & alive & (slots % 32 != wid % 32)
+        for r in range(fld.shape[0]):
+            fld[r, kill] = band_pair.dead_lane_fill(r)
+    return backend, st, aux, fld, tables
+
+
+@pytest.mark.parametrize("case", ["dense3d", "dense2d", "tiles48",
+                                  "tiles16", "warp16", "one_alive", "sphere",
+                                  "one", "2d"])
+def test_strip_cgrad_matches_one_pass_scan(device, case):
+    """The strip colour-gradient kernel (strip_filter_kernel: the warp box
+    filter, the colour gate of the block and of each warp, offsets without
+    a candidate skipped) within its bar of the plain version and bit for
+    bit equal to its one-pass check kernel on every alive row, +0.0 on
+    every other; rho patched first, as the force stage does."""
+    backend, st, aux, fld, tables = strip_cgrad_case(case, device)
+    geom = backend.geom
+    spec = PhysicsSpec(dim=geom.dim, **SPECS["bench"])
+    tabs = tables.stacked(device)
+    alive = fld[RTYPE] > 0.5
+    rho = strip_pair.plain_sweep("rho", fld, tabs, backend.win, aux.delta,
+                                 geom, spec)[ORHO]
+    fld[RRHO] = torch.where(alive, rho * fld[RM], fld[RRHO])
+    kern, scan = strip_pair.SWEEPS["cgrad"], strip_pair.SCANS["cgrad"]
+    n0, s0 = kern.launches, scan.launches
+    out_k = kern(fld, tabs, backend.win, aux.delta, geom, spec)
+    out_s = scan(fld, tabs, backend.win, aux.delta, geom, spec)
+    torch.cuda.synchronize()
+    assert (kern.launches, scan.launches) == (n0 + 1, s0 + 1)
+    out_p = strip_pair.plain_sweep("cgrad", fld, tabs, backend.win,
+                                   aux.delta, geom, spec)
+    check_rows("cgrad", out_k, out_p, alive)
+    rows = list(ROWS["cgrad"])
+    bits_k = out_k[rows][:, alive].view(torch.int32)
+    bits_s = out_s[rows][:, alive].view(torch.int32)
+    differ = int((bits_k != bits_s).any(0).sum())
+    assert differ == 0, differ
+    if bool((~alive).any()):
+        assert not bool((out_k[rows][:, ~alive].view(torch.int32) != 0)
+                        .any())
+    c = strip_pair.warp_pass_counts(fld, backend.win, aux.delta, geom,
+                                    tabs.cutmax2["cgrad"],
+                                    tabs.tab1[TABLES_1D.index("color")])
+    assert c["live_outside_box"] == 0, c
+    if case == "one":
+        assert c["gate_exits"] == c["blocks"] > 0, c
+    elif case in ("dense3d", "dense2d"):
+        assert c["needed_pairs"] > 4 * 128, c
 
 
 def column_layout(dim, periodic, seed, device, name="bench"):

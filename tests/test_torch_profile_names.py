@@ -1,9 +1,10 @@
 """``tpusph_torch.profile_step`` attributes the device time of each
 hand-written kernel to its wrapper's name in ``ops.all_kernels()``, from
 the kernel names the profiler reports (demangled C++ template names). The
-one-pass scans of the column and band layouts are check kernels on no
-path: a stray launch of one must be counted under its own name, never as
-the main path's sweep. Runs on the CPU: it reads names only."""
+one-pass scans (the strip's colour gradient and vapor sweep, the column
+and band layouts' three sweeps) are check kernels on no path: a stray
+launch of one must be counted under its own name, never as the main
+path's sweep. Runs on the CPU: it reads names only."""
 
 import pytest
 
@@ -22,9 +23,13 @@ def test_kernel_names_are_the_registry():
 
 @pytest.mark.parametrize("name,short", [
     (f"void sph::strip_filter_kernel<0, 16>{SIG}", "strip_rho"),
-    (f"void sph::strip_sweep_kernel<1>{SIG}", "strip_cgrad"),
+    (f"void sph::strip_filter_kernel<1, 16>{SIG}", "strip_cgrad"),
+    (f"void sph::strip_sweep_kernel<1>{SIG}", "strip_cgrad_scan"),
     (f"void sph::strip_filter_kernel<(int)2, 2>{SIG}", "strip_force"),
-    (f"void sph::strip_vapor_kernel{SIG}", "strip_vapor"),
+    (f"void (anonymous namespace)::strip_vapor_filter_kernel{SIG}",
+     "strip_vapor"),
+    (f"void (anonymous namespace)::strip_vapor_scan_kernel{SIG}",
+     "strip_vapor_scan"),
     (f"void sph::cell_sweep_kernel<0, 0, 16>{SIG}", "column_rho"),
     (f"void sph::cell_sweep_kernel<1, 0, 12>{SIG}", "column_cgrad"),
     (f"void sph::cell_sweep_kernel<2, 0, 6>{SIG}", "column_force"),

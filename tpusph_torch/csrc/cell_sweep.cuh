@@ -259,31 +259,18 @@ cell_sweep_kernel(const float* __restrict__ fld,
     wgate = unlike_types(wset, tb);
     if (lane == 0) wtypes[warp] = wset;
   }
-  if (lane == 0) {
-    for (int a = 0; a < 3; ++a) {
-      wbox[warp][a] = bx.lo[a];
-      wbox[warp][3 + a] = bx.hi[a];
-    }
-  }
+  if (lane == 0) put_box(wbox[warp], bx);
   __syncthreads();
   if (threadIdx.x == 0) {
     // the block's box: the union of its warps' (a dead warp's is empty),
     // and its colour gate from the union of their types; the first
     // barrier after it publishes both
-    unsigned bset = 0u;
-    for (int a = 0; a < 3; ++a) {
-      bbox.lo[a] = kBoxFar;
-      bbox.hi[a] = -kBoxFar;
+    bbox = union_box(wbox, blockDim.x / 32, rc);
+    if (kGate) {
+      unsigned bset = 0u;
+      for (int w = 0; w < (int)blockDim.x / 32; ++w) bset |= wtypes[w];
+      bgate = unlike_types(bset, tb);
     }
-    for (int w = 0; w < (int)blockDim.x / 32; ++w) {
-      for (int a = 0; a < 3; ++a) {
-        bbox.lo[a] = fminf(bbox.lo[a], wbox[w][a]);
-        bbox.hi[a] = fmaxf(bbox.hi[a], wbox[w][3 + a]);
-      }
-      if (kGate) bset |= wtypes[w];
-    }
-    bbox.set_radius(rc);
-    if (kGate) bgate = unlike_types(bset, tb);
     if (kCol && kGate) {
       // the alive prefixes' running sum; the pass below takes each cell's
       // reach anew

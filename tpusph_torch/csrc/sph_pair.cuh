@@ -403,10 +403,11 @@ __device__ __forceinline__ void stage_j(float* __restrict__ win, int ld, int k,
 // virial. A candidate is live when 1e-12 < rsq < the sweep's largest
 // squared cutoff (pair_live: a self-pair, a far-staged row and a row beyond
 // every cutoff fail it); pair_body adds a live pair's terms. pair_sum is
-// both, for the sweeps that test every candidate in the body's loop; the
-// strip rho and force sweeps test first and run the body on the live pairs
-// (strip_sweeps.cu). Both paths form dx and rsq with pair_rsq, so they keep
-// the same pairs and sum the same bits.
+// both, for the kernels that test every candidate in the body's loop
+// (the one-pass check kernels, the compacted sweep over its survivors);
+// the filtered sweeps test first and run the body on the live pairs
+// (warp_filter.cuh). Both paths form dx and rsq with pair_rsq, so they
+// keep the same pairs and sum the same bits.
 
 __device__ __forceinline__ float pair_rsq(const float* __restrict__ win,
                                           int ld, int k, const IRow& ir,

@@ -1,7 +1,7 @@
-// The warp box filter and the warp pair queue, shared by the strip rho and
-// force sweeps (strip_sweeps.cu's strip_filter_kernel) and the cell sweeps
-// (cell_sweep.cuh's cell_sweep_kernel: force on the column and band
-// layouts, rho and colour gradient on the band's).
+// The warp box filter and the warp pair queue, shared by the strip sweeps
+// (strip_sweeps.cu's strip_filter_kernel: rho, colour gradient and force;
+// its vapor sweep takes the box alone) and the cell sweeps (cell_sweep.cuh's
+// cell_sweep_kernel: the three sweeps on the column and band layouts).
 //
 // A warp of i rows sweeps a window of staged j rows ([NF][ld] floats in
 // shared memory, sph_pair.cuh's staging) in three phases (filter_window):
@@ -122,10 +122,12 @@ __device__ __forceinline__ bool gate_keeps(unsigned keep, float type) {
   return (keep & type_bit((int)type)) != 0u;
 }
 
-__device__ __forceinline__ WarpBox warp_box(const IRow& ir, bool alive,
-                                            unsigned wmask, float rc) {
+// The box of the warp's alive lanes' points (x, y, z), radius from rc.
+__device__ __forceinline__ WarpBox warp_box_at(float x, float y, float z,
+                                               bool alive, unsigned wmask,
+                                               float rc) {
   WarpBox bx;
-  const float xs[3] = {ir.x, ir.y, ir.z};
+  const float xs[3] = {x, y, z};
   for (int a = 0; a < 3; ++a) {
     bx.lo[a] = key_float(__reduce_min_sync(
         wmask, float_key(alive ? xs[a] : kBoxFar)));
@@ -134,6 +136,38 @@ __device__ __forceinline__ WarpBox warp_box(const IRow& ir, bool alive,
   }
   bx.set_radius(rc);
   return bx;
+}
+
+__device__ __forceinline__ WarpBox warp_box(const IRow& ir, bool alive,
+                                            unsigned wmask, float rc) {
+  return warp_box_at(ir.x, ir.y, ir.z, alive, wmask, rc);
+}
+
+// The block's box from its warps' bounds ([nwarps][6] in shared memory,
+// lo then hi; a warp with no alive row holds the empty box): their union,
+// with its own radius from rc, so it keeps every row any warp box keeps.
+__device__ __forceinline__ WarpBox union_box(const float (*wbox)[6],
+                                             int nwarps, float rc) {
+  WarpBox bx;
+  for (int a = 0; a < 3; ++a) {
+    bx.lo[a] = kBoxFar;
+    bx.hi[a] = -kBoxFar;
+  }
+  for (int w = 0; w < nwarps; ++w) {
+    for (int a = 0; a < 3; ++a) {
+      bx.lo[a] = fminf(bx.lo[a], wbox[w][a]);
+      bx.hi[a] = fmaxf(bx.hi[a], wbox[w][3 + a]);
+    }
+  }
+  bx.set_radius(rc);
+  return bx;
+}
+
+__device__ __forceinline__ void put_box(float* wb, const WarpBox& bx) {
+  for (int a = 0; a < 3; ++a) {
+    wb[a] = bx.lo[a];
+    wb[3 + a] = bx.hi[a];
+  }
 }
 
 // The i rows' hoisted values in shared memory, [IR_NF][threads]: the lane

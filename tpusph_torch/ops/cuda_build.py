@@ -4,13 +4,13 @@ colour gradient, force and the phase-change vapor query,
 force, ``csrc/column_sweeps.cu``), the band sweeps (rho, colour
 gradient, force, ``csrc/band_sweeps.cu``) and the compacted force sweep
 (``csrc/compact_force.cu``), which share their pair physics through
-``csrc/sph_pair.cuh``; the strip, column and band force sweeps share the
-warp box filter and pair queue (``csrc/warp_filter.cuh``), and the column
-force and the three band sweeps one filtered kernel
-(``csrc/cell_sweep.cuh``). The column library also exports its one-pass
-force scan as ``column_force_scan_launch``, the band library its one-pass
-scans as ``band_{rho,cgrad,force}_scan_launch``: check kernels no path
-launches.
+``csrc/sph_pair.cuh``; the strip, column and band sweeps share the warp
+box filter and pair queue (``csrc/warp_filter.cuh``), and the column and
+band sweeps one filtered kernel (``csrc/cell_sweep.cuh``). The strip
+library also exports its one-pass colour-gradient and vapor scans as
+``strip_{cgrad,vapor}_scan_launch``, the column and band libraries their
+one-pass scans as ``{column,band}_{rho,cgrad,force}_scan_launch``: check
+kernels no path launches.
 
 Each source has a plain C interface: it is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library under ``tpusph_torch/_build/`` at first
@@ -55,9 +55,11 @@ _COLUMN_FLOAT_ARGS = ("lx", "ly", "lcol", "cutmax2")
 _BAND_INT_ARGS = ("n_slots", "ncx", "ncy", "nsub_pad", "G", "c", "k", "dim",
                   "per_x", "per_y", "per_col", "kernel", "flags", "T1")
 _COMPACT_INT_ARGS = _INT_ARGS + ("P",)
-# the launchers of the column and band libraries: each sweep and its
-# one-pass check kernels
-LAUNCHERS = {"column": ("rho", "cgrad", "force", "rho_scan", "cgrad_scan",
+# the launchers of each library: each sweep and its one-pass check
+# kernels
+LAUNCHERS = {"strip": ("rho", "cgrad", "force", "cgrad_scan", "vapor",
+                       "vapor_scan"),
+             "column": ("rho", "cgrad", "force", "rho_scan", "cgrad_scan",
                         "force_scan"),
              "band": ("rho", "cgrad", "force", "rho_scan", "cgrad_scan",
                       "force_scan")}
@@ -89,13 +91,12 @@ def _nvcc() -> str:
 def _bind(name: str, handle: ctypes.CDLL) -> None:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "strip":
-        for sweep in ("rho", "cgrad", "force"):
+        for sweep in LAUNCHERS["strip"]:
             fn = getattr(handle, f"strip_{sweep}_launch")
-            fn.argtypes = [ptr] * 7 + [i32] * len(_INT_ARGS) + [f32, ptr]
+            fn.argtypes = ([ptr] * 5 + [i32] * len(_VAPOR_INT_ARGS)
+                           + [f32, ptr] if sweep.startswith("vapor") else
+                           [ptr] * 7 + [i32] * len(_INT_ARGS) + [f32, ptr])
             fn.restype = i32
-        fn = handle.strip_vapor_launch
-        fn.argtypes = [ptr] * 5 + [i32] * len(_VAPOR_INT_ARGS) + [f32, ptr]
-        fn.restype = i32
     elif name == "compact":
         fn = handle.compact_force_launch
         fn.argtypes = ([ptr] * 7 + [i32] * len(_COMPACT_INT_ARGS)
@@ -169,19 +170,20 @@ def _call(lib_name: str, fn_name: str, tensors, ints, int_names, floats,
 
 def launch(sweep: str, fld, perm, shift, delta, tab2, tab1, out, *,
            cutmax2: float, **ints) -> None:
-    """Launch one strip sweep on the current stream; raises on a refused
-    launch. Tensors are checked by the caller (strip_pair.SweepKernel)."""
+    """Launch one strip sweep (``sweep`` rho, cgrad, force or the check
+    kernel cgrad_scan) on the current stream; raises on a refused launch.
+    Tensors are checked by the caller (strip_pair.SweepKernel)."""
     _call("strip", f"strip_{sweep}_launch",
           (fld, perm, shift, delta, tab2, tab1, out), ints, _INT_ARGS,
           (cutmax2,), fld.device)
 
 
-def launch_vapor(fld, perm, shift, delta, out, *, cut2: float,
+def launch_vapor(name: str, fld, perm, shift, delta, out, *, cut2: float,
                  **ints) -> None:
-    """Launch the strip vapor sweep on the current stream; raises on a
-    refused launch. Tensors are checked by the caller
-    (strip_pair.VaporKernel)."""
-    _call("strip", "strip_vapor_launch", (fld, perm, shift, delta, out),
+    """Launch the strip vapor sweep (``name`` vapor) or its check kernel
+    (vapor_scan) on the current stream; raises on a refused launch.
+    Tensors are checked by the caller (strip_pair.VaporKernel)."""
+    _call("strip", f"strip_{name}_launch", (fld, perm, shift, delta, out),
           ints, _VAPOR_INT_ARGS, (cut2,), fld.device)
 
 

@@ -907,19 +907,22 @@ def _warp_ids(slots: torch.Tensor, geom: StripGeometry) -> torch.Tensor:
     return (slots // brows) * wpb + (slots % brows) // 32
 
 
-def _warp_boxes(fld, geom: StripGeometry, c0: int, c1: int, rc: float):
-    """Per warp of columns [c0, c1): the strip rho / force kernels' filter
-    — the bounding box (lo, hi) of the warp's alive rows, (warps, 3), and
-    rp^2 with rp = rc + 1e-5 * (rc + the box's largest coordinate
-    magnitude), float32, each operation rounded once — whether the warp has
-    an alive row, and the first and last tile of its rows."""
+def _warp_boxes(fld, geom: StripGeometry, c0: int, c1: int, rc: float,
+                active=None):
+    """Per warp of columns [c0, c1): the strip kernels' filter — the
+    bounding box (lo, hi) of the warp's alive rows (of its ``active`` rows
+    where given, an (n_slots,) mask), (warps, 3), and rp^2 with rp = rc +
+    1e-5 * (rc + the box's largest coordinate magnitude), float32, each
+    operation rounded once — whether the warp has such a row, and the
+    first and last tile of its rows."""
     dev = fld.device
     brows, cap = geom.block_rows, geom.col_cap
     wpb = -(-brows // 32)
     nw = (c1 - c0) * geom.nblocks * wpb
     rows = torch.arange(c0 * cap, c1 * cap, device=dev)
     wid = _warp_ids(rows, geom) - _warp_ids(rows[:1], geom)
-    alive = fld[RTYPE, c0 * cap:c1 * cap] > 0.5
+    alive = (fld[RTYPE] > 0.5 if active is None else active)[
+        c0 * cap:c1 * cap]
     big = torch.tensor(float("inf"), device=dev)
     lo = torch.empty(nw, 3, device=dev)
     hi = torch.empty(nw, 3, device=dev)
@@ -962,9 +965,13 @@ def _box_d2(x, y, z, lo, hi):
 
 def warp_pass_counts(fld: torch.Tensor, win: StripWindows,
                      delta: torch.Tensor, geom: StripGeometry,
-                     cut2: float) -> dict:
+                     cut2: float, colors: torch.Tensor | None = None
+                     ) -> dict:
     """The counts that decide the strip rho / force kernels' design, on any
     device; used by chip_smoke.py and the tests, never on the main path.
+    With ``colors``, the (T1,) colour of each type (tab1's colour row),
+    the colour-gradient kernel's counts instead (``_gated_pass_counts``:
+    its rows are those of mixed tiles, its gate the colour gate).
 
     Over the alive i rows (seam ghosts included: the kernels sum them) and
     the warps of 32 rows that hold one:
@@ -984,6 +991,14 @@ def warp_pass_counts(fld: torch.Tensor, win: StripWindows,
                       per warp and offset ceil(live pairs / 32), summed;
       live_outside_box  live pairs whose j row is not a box survivor of i's
                       warp (0: the filter is conservative)."""
+    if colors is not None:
+        from tpusph_torch.ops.cell_filter import _gate
+        cols = colors.to(fld.device, torch.float32)
+        return _gated_pass_counts(
+            fld, win, delta, geom, cut2,
+            (fld[RTYPE] > 0.5) & (fld[RMIX] > 0.75),
+            lambda present: _gate(present, cols),
+            lambda ti, tj: cols[ti] != cols[tj], cols.numel())
     dev = fld.device
     cap, ts, W, nnbr = geom.col_cap, geom.ts, geom.w, geom.nnbr
     t_blk, ch = geom.t_blk, geom.ch
@@ -1056,6 +1071,171 @@ def warp_pass_counts(fld: torch.Tensor, win: StripWindows,
     return counts
 
 
+def vapor_pass_counts(fld: torch.Tensor, win: StripWindows,
+                      delta: torch.Tensor, geom: StripGeometry, vtype: int,
+                      cut: float) -> dict:
+    """The counts of the vapor kernel's phases (``_gated_pass_counts``
+    under its type gate — a j row is a candidate when its type lies in
+    (vtype - 0.5, vtype + 0.5) — and the vapor's cutoff), on any device;
+    used by chip_smoke.py and the tests, never on the main path. ``fld``
+    as ``VaporKernel`` takes it."""
+    T1 = max(int(fld[RTYPE].max()), vtype) + 1
+    tv = torch.arange(T1, device=fld.device) == vtype
+    return _gated_pass_counts(
+        fld, win, delta, geom, _vapor_cut2(cut), fld[RTYPE] > 0.5,
+        lambda present: tv.expand(present.shape[0], T1),
+        lambda ti, tj: tj == vtype, T1)
+
+
+def _gated_pass_counts(fld, win: StripWindows, delta, geom: StripGeometry,
+                       cut2: float, active: torch.Tensor, keep, need,
+                       T1: int) -> dict:
+    """The counts of a gated strip kernel's phases (the colour gradient's
+    and the vapor's, ``csrc/strip_sweeps.cu``), on any device. The kernel
+    forms the sums of the ``active`` (n_slots,) rows; a block of them (and
+    each warp) keeps the window rows of the types ``keep(present)`` gives
+    for the (B, T1) set of its active rows' types (the gate, a (B, T1)
+    mask); ``need(ti, tj)`` says which of the live pairs add anything.
+    A block stages, per neighbour column, its union window, each row a
+    candidate when it is alive, kept by the block's gate and inside the
+    block's box (the union of its warps' boxes of active rows, radius
+    sqrt(cut2)); each warp then tests the candidates against its own box
+    and gate. Over the active rows and the blocks and warps that hold one:
+      rows / warps / blocks   active rows, warps and blocks with one;
+      gate_exits      active blocks with no candidate in any neighbour
+                      column (they skip every one);
+      candidates      window rows each active row tests in the one-pass
+                      scan (nnbr*W per row, inside the column);
+      staged_rows     window rows the active blocks read at staging, and
+                      staged_with_terms those staged as candidates;
+      box_survivors   (warp, offset, row) candidates inside the warp's box
+                      and kept by its gate;
+      live_pairs      (i, j), i active, with 1e-12 < rsq < cut2, and
+                      needed_pairs those ``need`` keeps;
+      old_passes      (warp, offset, row) where any lane has a live pair
+                      (the lockstep scan's body passes);
+      body_passes     those among the box survivors (the kernel's);
+      live_outside_box  needed pairs whose j row fails the block's or the
+                      warp's box or gate (0: the filter is conservative)."""
+    dev = fld.device
+    cap, ts, nnbr = geom.col_cap, geom.ts, geom.nnbr
+    t_blk, ch, brows, nbk = geom.t_blk, geom.ch, geom.block_rows, \
+        geom.nblocks
+    wpb = -(-brows // 32)
+    rc = float(np.sqrt(np.float32(cut2)))
+    cut2 = float(np.float32(cut2))
+    counts = dict(rows=0, warps=0, blocks=0, gate_exits=0, candidates=0,
+                  staged_rows=0, staged_with_terms=0, box_survivors=0,
+                  live_pairs=0, needed_pairs=0, old_passes=0,
+                  body_passes=0, live_outside_box=0)
+    bu = max(brows + ch * (geom.mlo + geom.mhi), 1)  # block union window
+    wu = geom.w + ts * ((32 + ts - 2) // ts)         # a warp's, at most
+    cstep = max(1, _PLAIN_CHUNK // (nbk * wpb * nnbr * max(bu, wu)))
+    cstep = min(cstep, _column_step(geom))
+    alive = fld[RTYPE] > 0.5
+    typ = fld[RTYPE].long().clamp(0, T1 - 1)
+
+    def staged_at(jslot, sh):
+        """Positions of window rows (jslot) under their plane shifts."""
+        xj = [_take(fld[RX + a], jslot) for a in range(3)]
+        return [xj[0] + sh[..., 0:1], xj[1] + sh[..., 1:2], xj[2]]
+
+    def inside(xj, lo, hi, r2):
+        return _box_d2(*xj, [v[:, None, None] for v in lo.T],
+                       [v[:, None, None] for v in hi.T]) < r2[:, None, None]
+
+    for c0 in range(0, geom.ncols, cstep):
+        c1 = min(c0 + cstep, geom.ncols)
+        k = c1 - c0
+        nb = k * nbk
+        lo, hi, r2, has, tA, tB = _warp_boxes(fld, geom, c0, c1, rc, active)
+        nw = lo.shape[0]
+        w0 = _warp_ids(torch.tensor([c0 * cap], device=dev), geom)
+        # the gates and boxes of the warps and of the blocks
+        rows = torch.arange(c0 * cap, c1 * cap, device=dev)
+        wid = _warp_ids(rows, geom) - w0
+        act = active[c0 * cap:c1 * cap]
+        present = torch.zeros(nw * T1, dtype=torch.bool, device=dev)
+        present[(wid * T1 + typ[rows])[act]] = True
+        present = present.reshape(nw, T1)
+        wkeep = keep(present)
+        bkeep = keep(present.reshape(nb, wpb, T1).any(1))
+        blo = lo.reshape(nb, wpb, 3).amin(1)
+        bhi = hi.reshape(nb, wpb, 3).amax(1)
+        br2 = box_r2(blo, bhi, rc)
+        bhas = has.reshape(nb, wpb).any(1)
+        a_tile = act.reshape(k, geom.ntiles, ts).sum(-1)
+        _, ok, _ = _window_slots(win, delta, geom, c0, c1)
+        counts["rows"] += int(a_tile.sum())
+        counts["candidates"] += int((ok.sum(-1) * a_tile).sum())
+        counts["warps"] += int(has.sum())
+        counts["blocks"] += int(bhas.sum())
+
+        def block_cand(blk, jslot, xj):
+            """Whether each window row is a candidate of block ``blk``."""
+            kept = bkeep[blk[:, None, None], typ[jslot]]
+            return alive[jslot] & kept & inside(xj, blo[blk], bhi[blk],
+                                                br2[blk])
+
+        # staging: each active block's union window per neighbour column
+        bidx = torch.arange(nb, device=dev)
+        col, b = bidx // nbk + c0, bidx % nbk
+        pm = win.perm[col].long()                            # (nb, nnbr)
+        bb = torch.clamp(b[:, None] + delta[col, :, b].long(), 0, nbk - 1)
+        ulo = torch.clamp(bb * brows - ch * geom.mlo, min=0)
+        uhi = torch.clamp((bb + 1) * brows + ch * geom.mhi, max=cap)
+        jrow = ulo[..., None] + torch.arange(bu, device=dev)
+        inwin = (jrow < uhi[..., None]) & (pm >= 0)[..., None] \
+            & bhas[:, None, None]
+        jslot = torch.where(inwin, pm.clamp(min=0)[..., None] * cap + jrow, 0)
+        cand = inwin & block_cand(bidx, jslot, staged_at(jslot,
+                                                         win.shift[col]))
+        counts["staged_rows"] += int(inwin.sum())
+        counts["staged_with_terms"] += int(cand.sum())
+        counts["gate_exits"] += int((bhas & ~cand.any(2).any(1)).sum())
+        # each active warp's union window against its box and gate
+        wblk = torch.arange(nw, device=dev) // wpb
+        col, b = wblk // nbk + c0, wblk % nbk
+        pm = win.perm[col].long()
+        bb = torch.clamp(b[:, None] + delta[col, :, b].long(), 0, nbk - 1)
+        ulo = torch.clamp((bb * t_blk + tA[:, None]) * ts - ch * geom.mlo,
+                          min=0)
+        uhi = torch.clamp((bb * t_blk + tB[:, None]) * ts + ts
+                          + ch * geom.mhi, max=cap)
+        jrow = ulo[..., None] + torch.arange(wu, device=dev)
+        inwin = (jrow < uhi[..., None]) & (pm >= 0)[..., None] \
+            & has[:, None, None]
+        jslot = torch.where(inwin, pm.clamp(min=0)[..., None] * cap + jrow, 0)
+        xj = staged_at(jslot, win.shift[col])
+        surv = (inwin & block_cand(wblk, jslot, xj)
+                & wkeep[torch.arange(nw, device=dev)[:, None, None],
+                        typ[jslot]]
+                & inside(xj, lo, hi, r2))
+        counts["box_survivors"] += int(surv.sum())
+        # the live pairs of the active rows, and which of them phase (a)
+        # passes
+        pi, pj, psx, psy, kk = _window_pairs(fld, win, delta, geom, c0, c1,
+                                             cut2)
+        sel = active.index_select(0, pi)
+        pi, pj, psx, psy, kk = (t[sel] for t in (pi, pj, psx, psy, kk))
+        ti, tj = typ.index_select(0, pi), typ.index_select(0, pj)
+        needed = need(ti, tj)
+        counts["live_pairs"] += pi.numel()
+        counts["needed_pairs"] += int(needed.sum())
+        wi = _warp_ids(pi, geom) - w0
+        bi = wi // wpb
+        pos = [fld[RX].index_select(0, pj) + psx,
+               fld[RY].index_select(0, pj) + psy, fld[RZ].index_select(0, pj)]
+        kept = (alive.index_select(0, pj) & bkeep[bi, tj] & wkeep[wi, tj]
+                & (_box_d2(*pos, blo[bi].T, bhi[bi].T) < br2[bi])
+                & (_box_d2(*pos, lo[wi].T, hi[wi].T) < r2[wi]))
+        counts["live_outside_box"] += int((needed & ~kept).sum())
+        key = (wi * nnbr + kk) * geom.n_slots + pj
+        counts["old_passes"] += int(torch.unique(key).numel())
+        counts["body_passes"] += int(torch.unique(key[kept]).numel())
+    return counts
+
+
 def _window_checks(fld, win: StripWindows, delta, geom: StripGeometry):
     return (("fld", fld, (F_ROWS, geom.n_slots), torch.float32),
             ("perm", win.perm, (geom.ncols, geom.nnbr), torch.int32),
@@ -1072,7 +1252,9 @@ def _geom_ints(geom: StripGeometry) -> dict:
 
 
 class SweepKernel:
-    """Wrapper of one CUDA strip sweep.
+    """Wrapper of one CUDA strip sweep (``launcher`` rho, cgrad or force),
+    or of the one-pass colour-gradient scan (cgrad_scan), the check kernel
+    on no path.
 
     Replaces ``tpusph.ops.strip_pair.make_strip_kernel(sweep=...)`` (the
     ``pl.pallas_call`` at strip_pair.py:1233). CPU tensors take the plain
@@ -1084,22 +1266,26 @@ class SweepKernel:
     1M bench geometry) each i row's windows hold. Each block stages its
     union window once per neighbour column in shared memory, with the
     per-j terms (EOS, 1/rho, tension norms) computed there, and the
-    smoothing kernels' per type-pair constants once per block. Rho and
-    force then filter before they compute (``csrc/strip_sweeps.cu``): a
-    warp tests each window row once against the bounding box of its 32
-    rows (distance below the cutoff), each lane tests the box's survivors
-    exactly, rho adds a live pair at once, and force queues the warp's live
-    pairs and runs them 32 a pass, each lane on any row's pair, each row
-    adding its pairs in the one-pass scan's order (the same bits): the
-    body's passes follow the warp's live pairs / 32 rather than every row
-    any lane needs. ``warp_pass_counts`` gives those counts on a layout.
-    Colour gradient keeps the one-pass scan: its body runs on mixed tiles
-    only. The registers, the shared memory and the measured times are in
+    smoothing kernels' per type-pair constants once per block. The sweeps
+    then filter before they compute (``csrc/strip_sweeps.cu``): a warp
+    tests each window row once against the bounding box of its 32 rows
+    (distance below the cutoff), each lane tests the box's survivors
+    exactly, rho and the colour gradient add a live pair at once, and
+    force queues the warp's live pairs and runs them 32 a pass, each lane
+    on any row's pair, each row adding its pairs in the one-pass scan's
+    order (the same bits): the body's passes follow the warp's live pairs
+    / 32 rather than every row any lane needs. The colour gradient, which
+    sums the rows of mixed tiles only, also gates: a block stages as
+    candidates only rows of a colour unlike one of its rows' and inside
+    its box, skips a neighbour column with none, and each warp's box test
+    applies its own gate. ``warp_pass_counts`` gives those counts on a
+    layout. The registers, the shared memory and the measured times are in
     PERF.md.
     """
 
-    def __init__(self, sweep: str):
+    def __init__(self, sweep: str, launcher: str | None = None):
         self.sweep = sweep
+        self.launcher = launcher or sweep
         self.launches = 0
 
     def __call__(self, fld: torch.Tensor, tabs: DeviceTables,
@@ -1114,7 +1300,7 @@ class SweepKernel:
             return plain_sweep(self.sweep, fld, tabs, win, delta, geom, spec)
         out = torch.zeros(8, n, dtype=torch.float32, device=fld.device)
         cuda_build.launch(
-            self.sweep, fld, win.perm, win.shift, delta, tabs.tab2,
+            self.launcher, fld, win.perm, win.shift, delta, tabs.tab2,
             tabs.tab1, out, dim=geom.dim, kernel=spec.kernel,
             flags=spec_flags(spec), T1=T1, cutmax2=tabs.cutmax2[self.sweep],
             **_geom_ints(geom))
@@ -1126,6 +1312,7 @@ rho_sweep = SweepKernel("rho")
 cgrad_sweep = SweepKernel("cgrad")
 force_sweep = SweepKernel("force")
 SWEEPS = {"rho": rho_sweep, "cgrad": cgrad_sweep, "force": force_sweep}
+cgrad_scan = SweepKernel("cgrad", "cgrad_scan")
 
 
 # --------------------------------------------------------------------------
@@ -1218,21 +1405,27 @@ def plain_vapor_sweep(fld: torch.Tensor, win: StripWindows,
 
 
 class VaporKernel:
-    """Wrapper of the CUDA vapor sweep (``strip_vapor_launch``).
+    """Wrapper of the CUDA vapor sweep (``launcher`` vapor), or of its
+    one-pass scan (vapor_scan), the check kernel on no path.
 
     Replaces ``tpusph.ops.strip_pair.make_vapor_kernel`` (the
     ``pl.pallas_call`` at strip_pair.py:1348). CPU tensors take the plain
     version (``plain_vapor_sweep``); CUDA tensors launch the kernel or
-    raise. ``launches`` counts kernel launches only.
+    raise. ``launches`` counts kernel launches only. The kernel writes
+    the five output rows of every slot (0 / VAPOR_BIG where there is no
+    vapour neighbour).
 
-    On the card the sweep is bound by instruction throughput over the
-    nnbr*W candidate rows of each i-row, about 20 bytes of shared memory
-    read per candidate. The kernel stages x, y, z, type and the encoded
-    slot of each block's union window once per neighbour column and
-    rejects a candidate of another type after one shared load, before any
-    arithmetic; both running argmins live in registers."""
+    On the card only the pairs with a vapour row within the cutoff add
+    anything, and the vapour rows are a small part of any window. The
+    kernel (``csrc/strip_sweeps.cu``) stages a window row as a candidate
+    only when it is of type ``vtype`` and inside the box of the block's
+    alive rows (radius the cutoff), skips a neighbour column with none,
+    then tests the candidates against each warp's box and each lane's
+    exact rsq; both running argmins live in registers.
+    ``vapor_pass_counts`` gives those counts on a layout."""
 
-    def __init__(self):
+    def __init__(self, launcher: str = "vapor"):
+        self.launcher = launcher
         self.launches = 0
 
     def __call__(self, fld: torch.Tensor, win: StripWindows,
@@ -1250,16 +1443,19 @@ class VaporKernel:
         if fld.device.type == "cpu":
             return plain_vapor_sweep(fld, win, delta, geom, vtype, cut)
         out = torch.zeros(8, n, dtype=torch.float32, device=fld.device)
-        cuda_build.launch_vapor(fld, win.perm, win.shift, delta, out,
-                                vtype=int(vtype), cut2=_vapor_cut2(cut),
-                                **_geom_ints(geom))
+        cuda_build.launch_vapor(self.launcher, fld, win.perm, win.shift,
+                                delta, out, vtype=int(vtype),
+                                cut2=_vapor_cut2(cut), **_geom_ints(geom))
         self.launches += 1
         return out
 
 
 vapor_sweep = VaporKernel()
-# every kernel wrapper of the strip backend, by name (launch counts)
+vapor_scan = VaporKernel("vapor_scan")
+# every kernel wrapper of the strip backend, by name (launch counts), and
+# the one-pass check kernels, which no path launches
 KERNELS = {**SWEEPS, "vapor": vapor_sweep}
+SCANS = {"cgrad": cgrad_scan, "vapor": vapor_scan}
 
 
 # --------------------------------------------------------------------------

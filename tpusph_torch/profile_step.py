@@ -29,33 +29,39 @@ from tpusph_torch.bench import build_bench_sim, card_info, run_bench
 
 # the hand-written kernels by their names in tpusph_torch.ops.all_kernels;
 # a sweep kernel's template argument is the Sweep enum (rho 0, cgrad 1,
-# force 2); the strip rho and force sweeps are strip_filter_kernel, whose
-# second template argument is its blocks per SM; the three column and the
-# three band sweeps are cell_sweep_kernel<sweep, layout (column 0, band
-# 1), blocks per SM>; every one-pass column_sweep_kernel and
-# band_sweep_kernel is a check kernel {column,band}_{sweep}_scan
+# force 2); the three strip sweeps are strip_filter_kernel, whose second
+# template argument is its blocks per SM; the three column and the three
+# band sweeps are cell_sweep_kernel<sweep, layout (column 0, band 1),
+# blocks per SM>; every one-pass strip_sweep_kernel, column_sweep_kernel
+# and band_sweep_kernel is a check kernel {strip,column,band}_{sweep}_scan;
+# the vapor sweep is strip_vapor_filter_kernel, its one-pass check kernel
+# strip_vapor_scan_kernel
 SWEEPS = ("rho", "cgrad", "force")
 LAYOUTS = ("column", "band")
 KERNEL_NAMES = tuple(f"{b}_{s}" for b in ("strip", "column", "band")
                      for s in SWEEPS) + ("strip_vapor",) + tuple(
-    f"{b}_{s}_scan" for b in LAYOUTS for s in SWEEPS)
+    f"{b}_{s}_scan" for b in LAYOUTS for s in SWEEPS) + (
+    "strip_cgrad_scan", "strip_vapor_scan")
 _SWEEP = re.compile(
-    r"(strip|column|band)_(?:sweep|filter)_kernel<(?:\(int\))?(\d)[,>]")
+    r"(strip|column|band)_(sweep|filter)_kernel<(?:\(int\))?(\d)[,>]")
 _CELL_SWEEP = re.compile(
     r"cell_sweep_kernel<(?:\(int\))?(\d),\s*(?:\(int\))?(\d)[,>]")
+_VAPOR = re.compile(r"strip_vapor_(filter|scan)_kernel")
 
 
 def _kernel_of(name: str) -> str | None:
-    if "strip_vapor_kernel" in name:
-        return "strip_vapor"
+    m = _VAPOR.search(name)
+    if m:
+        return "strip_vapor" if m.group(1) == "filter" else "strip_vapor_scan"
     m = _CELL_SWEEP.search(name)
     if m:
         return f"{LAYOUTS[int(m.group(2))]}_{SWEEPS[int(m.group(1))]}"
     m = _SWEEP.search(name)
     if not m:
         return None
-    kind, sweep = m.group(1), SWEEPS[int(m.group(2))]
-    return f"{kind}_{sweep}" if kind == "strip" else f"{kind}_{sweep}_scan"
+    kind, sweep = m.group(1), SWEEPS[int(m.group(3))]
+    return f"{kind}_{sweep}" if m.group(2) == "filter" \
+        else f"{kind}_{sweep}_scan"
 
 
 def profile_window(mode: str, n_particles: int, steps: int,
