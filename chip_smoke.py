@@ -48,7 +48,19 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                (rows 0-4 within 2e-4 on the owned particles, the overflow
                row equal and rows 5-6 zero on every slot); fails if any
                alive row differs bitwise between the strip force kernel and
-               the compacted sweep, and prints phase 3's counts.
+               the compacted sweep, and prints phase 3's counts. The
+               compacted kernel (the tile compaction, then the warp box
+               filter and pair queue over each chunk of kept survivors) is
+               also held against its one-pass check kernel
+               (compact_force_scan_launch, which must launch 0 times on the
+               path): fails if any alive row's rows 0-4 differ bitwise or
+               any slot's overflow row differs; both timed in turns (new,
+               check, check, new; fails unless the new one is the faster),
+               with the counts of its phases
+               (mxu_compact.compact_pass_counts: compaction steps,
+               survivors, kept rows, chunks, warp box survivors, live
+               pairs, body passes lockstep and queued; fails on a live pair
+               outside its warp's box).
   7. uniform — the 1M `uniform` bench (the reference prototype's default),
                5 steps on the strip, then phase 6 on its layout.
   8. uniform main path — resets the counts, runs the `uniform` bench on
@@ -134,11 +146,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 Prints the five bench JSON lines, one JSON line of the kernels (launches
 on the boiling paths, the band path and the compacted sweep's two paths;
 times and bounds from phases 11, 15, 19 and 6, the largest error of all
-comparisons; for the strip colour-gradient and vapor kernels and the
-three column and the three band kernels also the one-pass check kernel's
-time in turns, the rows that differ bitwise from it and the counts of
-their phases), and as the last line {"ok": true, "device": {...}}. The
-check kernels are on no path and have no line of their own.
+comparisons; for the strip colour-gradient and vapor kernels, the three
+column and the three band kernels and the compacted kernel also the
+one-pass check kernel's time in turns, the rows that differ bitwise from
+it and the counts of their phases; for the compacted kernel also its
+and its check kernel's registers and spill stores from the ptxas log),
+and as the last line {"ok": true, "device": {...}}. The check kernels
+are on no path and have no line of their own.
 """
 
 from __future__ import annotations
@@ -514,11 +528,14 @@ def hold_compact(sim, label, reps=10):
     ``compact_inputs`` and ``measure_inputs``, runs with the launch counts
     reset just before it and read just after (the force stage's sweeps,
     the strip force kernel and the compacted kernel must have launched,
-    no other); then the compacted kernel against the strip force kernel on
-    the same inputs and against its plain version. Returns the report."""
+    no other: its one-pass check kernel compact_force_scan included); then
+    the compacted kernel against the strip force kernel on the same
+    inputs, against its one-pass check kernel (bit for bit; both timed in
+    turns, the new one the faster), with the counts of its phases, and
+    against its plain version. Returns the report."""
     import torch
     from tpusph_torch import proto_mxu_compact as proto
-    from tpusph_torch.ops import mxu_compact
+    from tpusph_torch.ops import cuda_build, mxu_compact
     from tpusph_torch.ops.rows import ODE, ODRHO, OFX, OFY, OFZ, RMIX
 
     spec = sim.spec
@@ -548,22 +565,41 @@ def hold_compact(sim, label, reps=10):
     # (a pair the strip force's warp box dropped would show here)
     alive = inp.state.alive
     rows5 = [OFX, OFY, OFZ, ODRHO, ODE]
-    differ = int((proto.run_strip(inp)[rows5][:, alive]
-                  != proto.run_compact(inp)[rows5][:, alive]).any(0).sum())
+    out_k = proto.run_compact(inp)
+    strip_differ = int((proto.run_strip(inp)[rows5][:, alive]
+                        != out_k[rows5][:, alive]).any(0).sum())
     print(f"  {label}: alive rows whose rows 0-4 differ bitwise between the "
-          f"strip force and the compacted sweep: {differ} of "
+          f"strip force and the compacted sweep: {strip_differ} of "
           f"{int(alive.sum())} (must be 0)")
-    assert differ == 0, (label, differ)
+    assert strip_differ == 0, (label, strip_differ)
 
     def run_kernel():
         return proto.run_compact(inp)
+
+    def run_scan():
+        return mxu_compact.compact_force_scan(
+            inp.fld, inp.tabs, inp.backend.win, inp.aux.delta, geom,
+            inp.spec, inp.P, inp.cut)
 
     def run_plain():
         return mxu_compact.plain_compact_force(
             inp.fld, inp.tabs, inp.backend.win, inp.aux.delta, geom,
             inp.spec, inp.P, inp.cut)
 
-    out_k = run_kernel()
+    # against the one-pass check kernel: rows 0-4 of every alive row bit
+    # for bit, the overflow row equal on every slot
+    out_s = run_scan()
+    differ = int((out_k[rows5][:, alive].view(torch.int32)
+                  != out_s[rows5][:, alive].view(torch.int32)).any(0).sum())
+    ocnt_neq = int((out_k[mxu_compact.OCNT] != out_s[mxu_compact.OCNT]).sum())
+    print(f"  {label}: alive rows whose rows 0-4 differ bitwise between the "
+          f"filtered kernel and the one-pass check kernel: {differ} of "
+          f"{int(alive.sum())}, overflow row {ocnt_neq} slots (must be 0)")
+    assert differ == 0 and ocnt_neq == 0, (label, differ, ocnt_neq)
+    ms, scan_ms = in_turns(f"{label} compact", run_kernel, run_scan, reps)
+    print(f"  {label}: compacted kernel / strip force kernel on the same "
+          f"inputs {ms / rep['strip_force_ms']:.3f} (in-turns mean over "
+          "the strip force's time above)")
     out_p = run_plain()
     # rows 0-4 on the owned particles: the seam-ghost rows' sums are
     # discarded (refresh_seam re-copies the ghosts every step), and on the
@@ -571,8 +607,8 @@ def hold_compact(sim, label, reps=10):
     # while its x and y sums cancel to ~1e-5, so float32 sums in any two
     # orders differ there by more than 2e-4 of the x row's largest value
     # (plain version against float64 sums at 32^3: 4.5e-6 on ghost rows,
-    # 1.8e-7 on owned rows); against the strip force kernel above, and in
-    # the overflow row below, ghost rows are held too
+    # 1.8e-7 on owned rows); against the strip force kernel and the check
+    # kernel above, and in the overflow row below, ghost rows are held too
     own = inp.state.alive & inp.state.owned
     errs = compare_rows(f"{label} compact", "force", out_k, out_p, own,
                         (OFX, OFY, OFZ, ODRHO, ODE))
@@ -592,15 +628,47 @@ def hold_compact(sim, label, reps=10):
           f"{st_pairs}")
     counts = pass_counts(f"{label} W {geom.w} t_blk {geom.t_blk}", fld,
                          inp.backend.win, inp.aux.delta, geom, cut2)
+    ccounts = compact_counts(label, inp)
     times = timed(f"{label} compact", run_kernel, run_plain, int(own.sum()),
                   ops, reps, kind="force")
     torch.cuda.synchronize()
+    log = cuda_build.load().ptxas_log
+    regs, spill = cuda_build.kernel_resources(log, "compact_filter_kernel")
+    scan_regs, scan_spill = cuda_build.kernel_resources(
+        log, "compact_scan_kernel")
     return dict(max_abs_err=max(errs), launches=launches["compact_force"],
                 strip_force_ms=rep["strip_force_ms"],
                 ms_beside_strip=rep["compact_force_ms"], P=inp.P, W=geom.w,
                 lane_ratio=rep["lane_ratio"],
-                overflow_rows=rep["overflow_rows"], rows_differ_bitwise=differ,
-                warp_passes=counts, **times)
+                overflow_rows=rep["overflow_rows"],
+                rows_differ_from_strip=strip_differ, ms_in_turns=ms,
+                scan_ms=scan_ms, rows_differ_bitwise=differ,
+                registers=regs, spill_stores=spill,
+                scan_registers=scan_regs, scan_spill_stores=scan_spill,
+                warp_passes=counts, compact_passes=ccounts, **times)
+
+
+def compact_counts(label, inp):
+    """``mxu_compact.compact_pass_counts`` on the compacted sweep's inputs,
+    printed with the ratios that decide its design; the host copy of its
+    warp box filter must keep every live pair of a kept row. Returns the
+    counts."""
+    from tpusph_torch.ops import mxu_compact
+    c = mxu_compact.compact_pass_counts(
+        inp.fld, inp.backend.win, inp.aux.delta, inp.backend.geom, inp.P,
+        inp.cut, inp.tabs.cutmax2["force"])
+    tiles, warps = max(c["tiles"], 1), max(c["warps"], 1)
+    print(f"  {label} compact counts: {json.dumps(c)}")
+    print(f"  {label} compact: per tile {c['steps'] / tiles:.1f} compaction "
+          f"steps, {c['survivors'] / tiles:.1f} survivors, "
+          f"{c['kept'] / tiles:.1f} kept, {c['chunks'] / tiles:.2f} chunks; "
+          f"per warp {c['box_survivors'] / warps:.1f} box survivors, "
+          f"{c['live_pairs'] / warps:.1f} live pairs, body passes "
+          f"{c['lockstep_passes'] / warps:.1f} lockstep (check kernel), "
+          f"{c['queue_passes'] / warps:.1f} queue "
+          f"({c['lockstep_passes'] / max(c['queue_passes'], 1):.2f}x fewer)")
+    assert c["live_outside_box"] == 0, c
+    return c
 
 
 def uniform_compact(n):

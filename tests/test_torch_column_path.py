@@ -144,13 +144,14 @@ def test_phase_change_under_band_takes_column_kernel():
 
 
 @pytest.mark.parametrize("name,error,match", [
-    ("cellgrid", NotImplementedError, "Queue 1 item 11"),
-    ("dense", NotImplementedError, "dense"),
+    ("cellgrid", NotImplementedError, "cellgrid.py, CellGridBackend"),
+    ("dense", NotImplementedError, "tpusph/ops/dense.py"),
     ("bogus", ValueError, "unknown backend"),
 ])
 def test_backends_not_ported_raise(name, error, match):
     """The rungs of the reference's ladder that have no port yet raise and
-    name the ROADMAP item that ports them; an unknown name is an error."""
+    name the reference's module that is not ported; an unknown name is an
+    error."""
     sim = build_bubble_sim(device="cpu", backend=name)
     with pytest.raises(error, match=match):
         sim.run(1)

@@ -914,16 +914,17 @@ def test_band_rho_cgrad_match_one_pass_scans(device, case, name):
         assert 0 < counts["needed_pairs"] < counts["live_pairs"], counts
 
 
-def compact_inputs(name, dim, periodic, seed, device):
-    """The strip layout of the lattice and the force sweep's field matrix,
-    packed as the force stage packs it (rho and cg patched), with P
-    measured over the alive rows: (backend, state, aux, fld, tabs, spec,
-    P, cut)."""
+def compact_inputs(name, dim, periodic, seed, device,
+                   candidates=strip_pair.DEFAULT_TS_CH):
+    """The strip layout of the lattice (tile rows and window chunks chosen
+    from ``candidates``) and the force sweep's field matrix, packed as the
+    force stage packs it (rho and cg patched), with P measured over the
+    alive rows: (backend, state, aux, fld, tabs, spec, P, cut)."""
     st, box, tables = lattice(dim, 12 if dim == 3 else 40, periodic, seed,
                               device, uniform=name == "bench_folded")
     x = st.x[st.alive].cpu().numpy()
     geom = strip_pair.choose_strip_geometry(box, tables.max_cut(), dim, 0.2,
-                                            x=x)
+                                            x=x, candidates=candidates)
     backend = strip_pair.StripBackend(geom, ntypes=2, device=device)
     st, aux = backend.init_aux(st, box)
     assert int(aux.overflow.sum()) == 0
@@ -936,21 +937,31 @@ def compact_inputs(name, dim, periodic, seed, device):
     return backend, st, aux, fld, tabs, spec, P, cut
 
 
+COMPACT_ROWS = (OFX, OFY, OFZ, ODRHO, ODE)
+
+
 def run_compact(backend, aux, fld, tabs, spec, P, cut):
-    """The compacted kernel (one launch counted) and its plain version."""
-    kern = mxu_compact.compact_force
-    n0 = kern.launches
-    out_k = kern(fld, tabs, backend.win, aux.delta, backend.geom, spec, P,
-                 cut)
+    """The compacted kernel and its one-pass check kernel (one launch
+    counted each), the kernel bit for bit equal to the check kernel on
+    rows 0-4 of every alive row and on the overflow row of every slot; and
+    the plain version. Returns the kernel's and the plain outputs."""
+    kern, scan = mxu_compact.compact_force, mxu_compact.compact_force_scan
+    n0, s0 = kern.launches, scan.launches
+    args = (fld, tabs, backend.win, aux.delta, backend.geom, spec, P, cut)
+    out_k = kern(*args)
+    out_s = scan(*args)
     torch.cuda.synchronize()
-    assert kern.launches == n0 + 1
+    assert (kern.launches, scan.launches) == (n0 + 1, s0 + 1)
+    alive = fld[RTYPE] > 0.5
+    rows = list(COMPACT_ROWS)
+    differ = int((out_k[rows][:, alive].view(torch.int32)
+                  != out_s[rows][:, alive].view(torch.int32)).any(0).sum())
+    assert differ == 0, differ
+    assert torch.equal(out_k[mxu_compact.OCNT], out_s[mxu_compact.OCNT])
     out_p = mxu_compact.plain_compact_force(fld, tabs, backend.win,
                                             aux.delta, backend.geom, spec,
                                             P, cut)
     return out_k, out_p
-
-
-COMPACT_ROWS = (OFX, OFY, OFZ, ODRHO, ODE)
 
 
 def check_compact(out_k, out_p, alive):
@@ -1015,3 +1026,45 @@ def test_compact_kernel_always_launches(device):
     dead[RTYPE] = 0.0
     out_k, out_p = run_compact(backend, aux, dead, tabs, spec, 128, cut)
     assert float(out_k.abs().max()) == 0.0
+
+
+def kill_rows(fld, slots):
+    """Make the rows ``slots`` dead (each field row its dead-lane fill)."""
+    for r in range(fld.shape[0]):
+        fld[r, slots] = band_pair.dead_lane_fill(r)
+
+
+@pytest.mark.parametrize("case", ["ts48", "ts16", "one_alive", "dead_tiles"])
+def test_compact_kernel_matches_one_pass_scan(device, case):
+    """The compacted kernel's control flow against its one-pass check
+    kernel (bit for bit, ``run_compact``) and its plain version: tiles of
+    48 rows (a second warp of 16 lanes) and of 16 (one warp of 16 lanes,
+    the block's other lanes only compact); warps of one alive row (in every
+    third warp: the warp's box is one point dilated by the cutoff); tiles
+    with no alive row (every third: zeros) beside tiles whose second warp
+    has none (it sums nothing)."""
+    cand = {"ts48": ((48, 16),), "ts16": ((16, 8),)}.get(
+        case, strip_pair.DEFAULT_TS_CH)
+    backend, st, aux, fld, tabs, spec, P, cut = compact_inputs(
+        "bench", 3, True, 47, device, candidates=cand)
+    geom = backend.geom
+    slots = torch.arange(geom.n_slots, device=device)
+    alive = fld[RTYPE] > 0.5
+    if case in ("ts48", "ts16"):
+        assert geom.ts == cand[0][0]
+    elif case == "one_alive":
+        assert keep_one_alive(fld, slots[::32], band_pair.dead_lane_fill) > 4
+    else:
+        tile = slots // geom.ts
+        kill_rows(fld, slots[alive & ((tile % 3 == 0) | (
+            (tile % 3 == 1) & (slots % geom.ts >= 32)))])
+        live = torch.zeros(geom.n_slots // geom.ts, dtype=torch.long,
+                           device=device).index_add_(
+            0, tile, (fld[RTYPE] > 0.5).long())
+        assert int((live == 0).sum()) > 4 and int((live > 0).sum()) > 4
+    out_k, out_p = run_compact(backend, aux, fld, tabs, spec, P, cut)
+    check_compact(out_k, out_p, fld[RTYPE] > 0.5)
+    assert float(out_k[mxu_compact.OCNT].max()) == 0.0
+    if case == "dead_tiles":
+        dead = (live == 0)[slots // geom.ts]
+        assert float(out_k[:, dead].abs().max()) == 0.0

@@ -8,7 +8,19 @@ rtol 2e-4 / atol 5e-4, drho 2e-4 / 1e-4: the same float32 sums in another
 order); with P below the candidate union, the per-tile overflow count and
 the sums equal an independent numpy construction of "the first P
 survivors in (offset, row) order"; and the wrapper takes the plain
-version on CPU tensors and rejects bad inputs."""
+version on CPU tensors and rejects bad inputs, as does the one-pass check
+kernel's, which no path launches.
+
+The CUDA kernel sums the kept survivors through a warp box filter: a warp
+tests each staged row against the box of its alive rows (the cutoff plus
+a float32 margin), then each lane the box's survivors exactly.
+``compact_pass_counts`` is the host copy of that filter: on a 3D
+periodic, a 2D and an open-edged layout, at the measured P and at a P
+below every tile's survivors, every live pair of a kept row survives its
+warp's box (with the box's radius cut by 3% some do not), the pair queue's
+body passes never exceed the one-pass kernel's lockstep passes, and the
+live pairs equal the numpy construction's. The kernel is held to its
+check kernel bit for bit on the card (tests/test_torch_cuda.py)."""
 
 import numpy as np
 import pytest
@@ -20,8 +32,11 @@ from tpusph.ops import mxu_compact as jmc
 from tpusph.ops import strip_pair as jsp
 from tpusph.params import PhysicsSpec as JSpec
 
-from tpusph_torch.ops import mxu_compact, strip_pair, tile_physics
-from tpusph_torch.ops.mxu_compact import OCNT, measure_union_cap
+from tpusph_torch.ops import all_kernels, mxu_compact, strip_pair, tile_physics
+from tpusph_torch.ops.band_pair import pack_fields
+from tpusph_torch.ops.mxu_compact import (
+    OCNT, compact_pass_counts, measure_union_cap,
+)
 from tpusph_torch.ops.rows import (
     ODE, ODRHO, OFX, OFY, OFZ, RTYPE, RX, RY, RZ,
 )
@@ -230,3 +245,70 @@ def test_wrapper_takes_plain_version_on_cpu_and_checks_inputs():
             kern(**{**args, **change})
             pytest.fail(what)
     assert kern.launches == n0
+
+
+def counts_layout(dim, periodic, seed):
+    """The port's strip layout of a JAX lattice system and its field matrix
+    (positions and types are all the filter reads), with the tables and P
+    measured over the alive rows: (backend, state, aux, tabs, fld, cut,
+    P)."""
+    st, box, tables = lattice_system(dim, nside=12 if dim == 3 else 24,
+                                     periodic=periodic, seed=seed)
+    sb, tst, aux, ttab = port_layout(st, box, tables, dim)
+    cut = ttab.max_cut()
+    P = measure_union_cap(tst.x[tst.alive].numpy(), sb.geom, box, cut)
+    return (sb, tst, aux, ttab.stacked("cpu"), pack_fields(tst, aux.mix),
+            cut, P)
+
+
+@pytest.mark.parametrize("dim,periodic", [(3, True), (2, True), (3, False)])
+@pytest.mark.parametrize("cap", ["measured", "overflow"])
+def test_compact_filter_keeps_every_live_pair(dim, periodic, cap):
+    """The kernel's warp box filter (``compact_pass_counts``) keeps every
+    live pair of a kept row, at the measured P and at P = 128, below the
+    tiles' survivors (the kept rows a prefix of a chunk); the queue's body
+    passes are at most the lockstep kernel's, those at most the warps' box
+    survivors; and the live pairs are exactly the numpy construction's
+    pairs of the first P survivors."""
+    sb, _, aux, tabs, fld, cut, P = counts_layout(dim, periodic, dim + 50)
+    geom, cutmax2 = sb.geom, tabs.cutmax2["force"]
+    if cap == "overflow":
+        P = 128
+    c = compact_pass_counts(fld, sb.win, aux.delta, geom, P, cut, cutmax2)
+    assert c["live_outside_box"] == 0, c
+    assert 0 < c["queue_passes"] <= c["lockstep_passes"], c
+    assert c["lockstep_passes"] <= c["box_survivors"], c
+    assert c["box_survivors"] <= -(-geom.ts // 32) * c["kept"], c
+    assert c["tiles"] <= c["chunks"], c
+    if cap == "overflow":
+        assert c["kept"] <= 128 * c["tiles"] < c["survivors"], c
+    else:
+        assert c["kept"] == c["survivors"], c
+    _, pi, *_ = first_p_survivors(fld, sb.win, aux.delta, geom, P, cut,
+                                  cutmax2)
+    assert c["live_pairs"] == len(pi), c
+
+
+def test_compact_filter_check_fails_with_radius_cut():
+    """The same check with the warp box's radius cut by 3%: live pairs
+    fall outside their warp's box, so the check above can fail."""
+    sb, _, aux, tabs, fld, cut, P = counts_layout(3, True, 53)
+    c = compact_pass_counts(fld, sb.win, aux.delta, sb.geom, P, cut,
+                            tabs.cutmax2["force"], radius_scale=0.97)
+    assert c["live_outside_box"] > 0, c
+
+
+def test_check_kernel_wrapper_takes_plain_version_on_cpu():
+    """The one-pass check kernel's wrapper (``compact_force_scan``) is in
+    the launch-count registry and, on CPU tensors, runs the plain version
+    and counts no launch."""
+    sb, _, aux, tabs, fld, cut, P = counts_layout(3, True, 53)
+    scan = mxu_compact.compact_force_scan
+    assert mxu_compact.SCANS == {"force": scan}
+    assert all_kernels()["compact_force_scan"] is scan
+    n0 = scan.launches
+    args = dict(fld=fld, tabs=tabs, win=sb.win, delta=aux.delta,
+                geom=sb.geom, spec=PhysicsSpec(dim=3, **SPECS["morris"]),
+                P=P, cut=cut)
+    assert torch.equal(scan(**args), mxu_compact.plain_compact_force(**args))
+    assert scan.launches == n0

@@ -48,9 +48,10 @@ from tpusph_torch.state import (
     Box, ParticleState, state_from_arrays, state_to_numpy,
 )
 
-# the ports that the backend ladder still waits for
-_CELLGRID_ITEM = "the cell grid's XLA sweeps (ROADMAP Queue 1 item 11)"
-_DENSE_ITEM = "the dense O(N^2) backend (ROADMAP Queue 1 items 3-4)"
+# the reference's modules that the backend ladder still waits for
+_CELLGRID_MODULE = ("the cell grid's XLA sweeps (tpusph/ops/cellgrid.py, "
+                    "CellGridBackend), not ported")
+_DENSE_MODULE = "the dense O(N^2) backend (tpusph/ops/dense.py), not ported"
 
 
 class CapacityOverflow(RuntimeError):
@@ -312,7 +313,8 @@ class Simulation:
         if self.tables.ntypes > 6:
             raise NotImplementedError(
                 f"{self.tables.ntypes} particle types: the strip, band and "
-                f"column kernels take at most 6; more go to {_CELLGRID_ITEM}")
+                "column kernels take at most 6; more go to "
+                f"{_CELLGRID_MODULE}")
         if name == "auto":
             name = "strip"
         if name == "strip":
@@ -329,8 +331,9 @@ class Simulation:
         if name == "pallas":
             return self._select_pallas_backend()
         if name in ("cellgrid", "dense"):
-            item = {"cellgrid": _CELLGRID_ITEM, "dense": _DENSE_ITEM}[name]
-            raise NotImplementedError(f"backend {name!r}: {item}")
+            module = {"cellgrid": _CELLGRID_MODULE,
+                      "dense": _DENSE_MODULE}[name]
+            raise NotImplementedError(f"backend {name!r}: {module}")
         raise ValueError(f"unknown backend {name!r}")
 
     def _select_strip_backend(self) -> Optional[StripBackend]:

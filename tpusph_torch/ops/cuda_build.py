@@ -9,8 +9,9 @@ box filter and pair queue (``csrc/warp_filter.cuh``), and the column and
 band sweeps one filtered kernel (``csrc/cell_sweep.cuh``). The strip
 library also exports its one-pass colour-gradient and vapor scans as
 ``strip_{cgrad,vapor}_scan_launch``, the column and band libraries their
-one-pass scans as ``{column,band}_{rho,cgrad,force}_scan_launch``: check
-kernels no path launches.
+one-pass scans as ``{column,band}_{rho,cgrad,force}_scan_launch``, the
+compacted library its one-pass kernel as ``compact_force_scan_launch``:
+check kernels no path launches.
 
 Each source has a plain C interface: it is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library under ``tpusph_torch/_build/`` at first
@@ -27,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -62,7 +64,8 @@ LAUNCHERS = {"strip": ("rho", "cgrad", "force", "cgrad_scan", "vapor",
              "column": ("rho", "cgrad", "force", "rho_scan", "cgrad_scan",
                         "force_scan"),
              "band": ("rho", "cgrad", "force", "rho_scan", "cgrad_scan",
-                      "force_scan")}
+                      "force_scan"),
+             "compact": ("force", "force_scan")}
 
 
 class _Lib:
@@ -75,6 +78,18 @@ class _Lib:
 
 
 _lib: _Lib | None = None
+
+
+def kernel_resources(log: str, kernel: str) -> tuple[int, int]:
+    """(registers, spill store bytes) of the kernel whose mangled name holds
+    ``kernel``, from a ``-Xptxas -v`` log (``_Lib.ptxas_log``)."""
+    lines = log.splitlines()
+    for k, line in enumerate(lines):
+        if "Function properties for" in line and kernel in line:
+            spill = re.search(r"(\d+) bytes spill stores", lines[k + 1])
+            regs = re.search(r"Used (\d+) registers", lines[k + 2])
+            return int(regs.group(1)), int(spill.group(1))
+    raise ValueError(f"{kernel}: not in the ptxas log")
 
 
 def _nvcc() -> str:
@@ -98,10 +113,11 @@ def _bind(name: str, handle: ctypes.CDLL) -> None:
                            [ptr] * 7 + [i32] * len(_INT_ARGS) + [f32, ptr])
             fn.restype = i32
     elif name == "compact":
-        fn = handle.compact_force_launch
-        fn.argtypes = ([ptr] * 7 + [i32] * len(_COMPACT_INT_ARGS)
-                       + [f32, f32, ptr])
-        fn.restype = i32
+        for sweep in LAUNCHERS["compact"]:
+            fn = getattr(handle, f"compact_{sweep}_launch")
+            fn.argtypes = ([ptr] * 7 + [i32] * len(_COMPACT_INT_ARGS)
+                           + [f32, f32, ptr])
+            fn.restype = i32
     else:
         ints = _COLUMN_INT_ARGS if name == "column" else _BAND_INT_ARGS
         for sweep in LAUNCHERS[name]:
@@ -206,11 +222,12 @@ def launch_band(sweep: str, fld, tab2, tab1, out, *, lx: float, ly: float,
           _BAND_INT_ARGS, (lx, ly, lcol, cutmax2), fld.device)
 
 
-def launch_compact(fld, perm, shift, delta, tab2, tab1, out, *,
+def launch_compact(name: str, fld, perm, shift, delta, tab2, tab1, out, *,
                    cutmax2: float, cut2: float, **ints) -> None:
-    """Launch the compacted force sweep on the current stream; raises on a
-    refused launch. Tensors are checked by the caller
+    """Launch the compacted force sweep (``name`` force) or its one-pass
+    check kernel (force_scan) on the current stream; raises on a refused
+    launch. Tensors are checked by the caller
     (mxu_compact.CompactForceKernel)."""
-    _call("compact", "compact_force_launch",
+    _call("compact", f"compact_{name}_launch",
           (fld, perm, shift, delta, tab2, tab1, out), ints,
           _COMPACT_INT_ARGS, (cutmax2, cut2), fld.device)

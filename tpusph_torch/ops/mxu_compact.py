@@ -35,13 +35,17 @@ from tpusph_torch.ops import cuda_build
 from tpusph_torch.ops.band_pair import check_inputs, spec_flags
 from tpusph_torch.ops.rows import ODE, ODRHO, OFX, OFY, OFZ, RTYPE, RX
 from tpusph_torch.ops.strip_pair import (
-    StripGeometry, StripWindows, _column_step, _geom_ints, _take,
-    _window_checks, _window_hits, _window_slots, sum_pairs,
+    StripGeometry, StripWindows, _box_d2, _column_step, _geom_ints, _take,
+    _window_checks, _window_hits, _window_slots, box_r2, sum_pairs,
 )
 from tpusph_torch.params import DeviceTables, PhysicsSpec
 
 BIG = 1e30
 OCNT = 7  # output row: per-tile compaction overflow count (rows 5-6 zero)
+# the filtered kernel's window rows a compaction step and staged rows a
+# chunk (csrc/compact_force.cu's kStep and kStage)
+COMPACT_STEP = 128
+COMPACT_STAGE = 128
 
 
 def measure_union_cap(x: np.ndarray, geom: StripGeometry, box, cut: float,
@@ -179,8 +183,122 @@ def plain_compact_force(fld: torch.Tensor, tabs: DeviceTables,
     return out
 
 
+def compact_pass_counts(fld: torch.Tensor, win: StripWindows,
+                        delta: torch.Tensor, geom: StripGeometry, P: int,
+                        cut: float, cutmax2: float,
+                        radius_scale: float = 1.0) -> dict:
+    """The counts that decide the compacted kernel's design, on any
+    device: the host copy of its filter (``csrc/compact_force.cu``), used
+    by chip_smoke.py and the tests, never on a path. Its warps are 32
+    consecutive rows of a tile (the last one partial where ts is not a
+    multiple of 32); ``radius_scale`` scales the warp box's cutoff (1: the
+    kernel's).
+      tiles           tiles with an alive row (the others write zeros);
+      steps           their compaction steps (barriers), COMPACT_STEP
+                      window rows each, per offset from the clipped window;
+      survivors       their ball-box survivors (``tile_survivors``), and
+                      kept the first P of each tile's;
+      chunks          non-empty chunks the warps sum: the kept rows in
+                      order, a step's joining the chunk unless it would
+                      overfill COMPACT_STAGE rows (then a new chunk);
+      warps           warps with an alive row;
+      box_survivors   (warp, kept row) where the row lies within the cutoff
+                      plus the float32 margin of the box of the warp's alive
+                      rows (``box_r2``): what phase (a) of filter_window
+                      passes to the lanes' exact tests;
+      live_pairs      (alive i, kept j) with 1e-12 < rsq < cutmax2;
+      lockstep_passes body passes of the one-pass check kernel: (warp,
+                      kept row) where any of the warp's rows has a live
+                      pair;
+      queue_passes    body passes of the warp pair queue: per warp and
+                      chunk ceil(live pairs / the warp's lanes), summed;
+      live_outside_box  live pairs whose j row is not a box survivor of i's
+                      warp (0: the filter is conservative)."""
+    dev = fld.device
+    cap, ts, W, nnbr = geom.col_cap, geom.ts, geom.w, geom.nnbr
+    T, M, nw = geom.ntiles, nnbr * W, -(-ts // 32)
+    rc = float(np.sqrt(np.float32(cutmax2))) * radius_scale
+    cutmax2 = float(np.float32(cutmax2))
+    counts = dict.fromkeys(
+        ("tiles", "steps", "survivors", "kept", "chunks", "warps",
+         "box_survivors", "live_pairs", "lockstep_passes", "queue_passes",
+         "live_outside_box"), 0)
+    nlanes = torch.clamp(ts - 32 * torch.arange(nw, device=dev), max=32)
+    cstep = _column_step(geom)
+    for c0 in range(0, geom.ncols, cstep):
+        c1 = min(c0 + cstep, geom.ncols)
+        k, r0 = c1 - c0, c0 * cap
+        keep, live = tile_survivors(fld, win, delta, geom, c0, c1, cut)
+        kept = keep & (keep.cumsum(-1) <= P)
+        counts["tiles"] += int(live.sum())
+        counts["survivors"] += int(keep.sum())
+        counts["kept"] += int(kept.sum())
+        # the compaction's steps, and the chunk each kept row is summed in
+        jslot, ok, shift = _window_slots(win, delta, geom, c0, c1)
+        okw = ok.reshape(k, T, nnbr, W)
+        nst = -(-okw.sum(-1) // COMPACT_STEP)                  # (k, T, nnbr)
+        pos = (okw.cumsum(-1) - 1).clamp(min=0) // COMPACT_STEP
+        gstep = ((nst.cumsum(-1) - nst)[..., None] + pos).reshape(k, T, M)
+        counts["steps"] += int((nst.sum(-1) * live).sum())
+        S = int(nst.sum(-1).max())
+        nkeep = torch.zeros(k, T, S + 1, dtype=torch.long, device=dev
+                            ).scatter_add_(2, gstep, kept.long())
+        staged = torch.zeros(k, T, dtype=torch.long, device=dev)
+        flushes = torch.zeros_like(staged)
+        chunk_of = torch.zeros_like(nkeep)
+        for step in range(S):
+            full = staged + nkeep[..., step] > COMPACT_STAGE
+            flushes += full
+            staged = torch.where(full, 0, staged) + nkeep[..., step]
+            chunk_of[..., step] = flushes
+        counts["chunks"] += int((flushes + (staged > 0)).sum())
+        chunk = chunk_of.gather(2, gstep).reshape(-1)
+        # the warps' boxes and their survivors among the kept rows
+        islot = (r0 + (torch.arange(k, device=dev) * cap)[:, None, None]
+                 + (torch.arange(T, device=dev) * ts)[None, :, None]
+                 + torch.arange(ts, device=dev))               # (k, T, ts)
+        pad = (0, nw * 32 - ts)
+        alive = torch.nn.functional.pad(_take(fld[RTYPE], islot) > 0.5,
+                                        pad).reshape(k, T, nw, 32)
+        lo, hi, xj = [], [], []
+        for axis in range(3):
+            xi = torch.nn.functional.pad(_take(fld[RX + axis], islot), pad
+                                         ).reshape(k, T, nw, 32)
+            lo.append(torch.where(alive, xi, float("inf")).amin(-1))
+            hi.append(torch.where(alive, xi, -float("inf")).amax(-1))
+            x = _take(fld[RX + axis], jslot)
+            xj.append(x + shift[:, None, :, axis] if axis < 2 else x)
+        has = alive.any(-1)                                    # (k, T, nw)
+        r2 = box_r2(torch.stack(lo, -1).reshape(-1, 3),
+                    torch.stack(hi, -1).reshape(-1, 3), rc).reshape(k, T, nw)
+        d2 = _box_d2(*[x[:, :, None, :] for x in xj],
+                     [v[..., None] for v in lo], [v[..., None] for v in hi])
+        inbox = (d2 < r2[..., None]) & kept[:, :, None, :] & has[..., None]
+        counts["warps"] += int(has.sum())
+        counts["box_survivors"] += int(inbox.sum())
+        # the live pairs of the kept rows, their warp and chunk
+        pi, _, _, _, m = _window_hits(fld, win, delta, geom, c0, c1, cutmax2)
+        tile = (pi - r0) // ts
+        sel = kept.reshape(-1).index_select(0, tile * M + m)
+        pi, m, tile = pi[sel], m[sel], tile[sel]
+        wt = tile * nw + ((pi - r0) % ts) // 32               # (tile, warp)
+        counts["live_pairs"] += pi.numel()
+        counts["live_outside_box"] += int(
+            (~inbox.reshape(-1).index_select(0, wt * M + m)).sum())
+        counts["lockstep_passes"] += int(torch.unique(wt * M + m).numel())
+        nch = S + 1
+        key, npairs = torch.unique(
+            wt * nch + chunk.index_select(0, tile * M + m),
+            return_counts=True)
+        lanes = nlanes[(key // nch) % nw]
+        counts["queue_passes"] += int(((npairs + lanes - 1) // lanes).sum())
+    return counts
+
+
 class CompactForceKernel:
-    """Wrapper of the CUDA compacted force sweep (``compact_force_launch``).
+    """Wrapper of the CUDA compacted force sweep (``launcher`` force:
+    ``compact_force_launch``) or of its one-pass check kernel (force_scan:
+    ``compact_force_scan_launch``, on no path).
 
     Replaces ``tpusph.ops.mxu_compact.make_compact_force_kernel`` (the
     ``pl.pallas_call`` at mxu_compact.py:277). CPU tensors take the plain
@@ -192,11 +310,17 @@ class CompactForceKernel:
     live. Here one block of 64 threads per tile scans each window row once
     for the whole tile (four loads and a ball-box test), compacts the
     survivors in order by warp ballots, and stages them in shared memory
-    in fixed chunks, so an i-row's pair loop runs over the tile's
-    survivors (at most P) instead of nnbr*W rows, and shared memory does
-    not grow with P."""
+    in fixed chunks, so shared memory does not grow with P. The kernel
+    then sums each chunk through the strip force's warp box filter and
+    warp pair queue (``csrc/warp_filter.cuh``): each warp tests the chunk
+    against the box of its rows, each lane the box's survivors exactly,
+    and the live pairs run 32 a pass, each row adding its pairs in the
+    check kernel's order (its bits). The check kernel runs the pair test
+    and, in lockstep, the body for every kept survivor in every row;
+    ``compact_pass_counts`` counts both on a layout."""
 
-    def __init__(self):
+    def __init__(self, launcher: str = "force"):
+        self.launcher = launcher
         self.launches = 0
 
     def __call__(self, fld: torch.Tensor, tabs: DeviceTables,
@@ -215,14 +339,18 @@ class CompactForceKernel:
         out = torch.empty(8, geom.n_slots, dtype=torch.float32,
                           device=fld.device)
         cuda_build.launch_compact(
-            fld, win.perm, win.shift, delta, tabs.tab2, tabs.tab1, out,
-            dim=geom.dim, kernel=spec.kernel, flags=spec_flags(spec), T1=T1,
-            P=int(P), cutmax2=tabs.cutmax2["force"], cut2=compact_cut2(cut),
+            self.launcher, fld, win.perm, win.shift, delta, tabs.tab2,
+            tabs.tab1, out, dim=geom.dim, kernel=spec.kernel,
+            flags=spec_flags(spec), T1=T1, P=int(P),
+            cutmax2=tabs.cutmax2["force"], cut2=compact_cut2(cut),
             **_geom_ints(geom))
         self.launches += 1
         return out
 
 
 compact_force = CompactForceKernel()
-# the kernel wrapper of this module (launch counts)
+compact_force_scan = CompactForceKernel("force_scan")
+# the kernel wrappers of this module (launch counts): the sweep, and its
+# one-pass check kernel, which no path launches
 KERNELS = {"force": compact_force}
+SCANS = {"force": compact_force_scan}

@@ -35,24 +35,31 @@ from tpusph_torch.bench import build_bench_sim, card_info, run_bench
 # blocks per SM>; every one-pass strip_sweep_kernel, column_sweep_kernel
 # and band_sweep_kernel is a check kernel {strip,column,band}_{sweep}_scan;
 # the vapor sweep is strip_vapor_filter_kernel, its one-pass check kernel
-# strip_vapor_scan_kernel
+# strip_vapor_scan_kernel; the compacted force sweep (on no path of
+# Simulation) is compact_filter_kernel, its check kernel compact_scan_kernel
 SWEEPS = ("rho", "cgrad", "force")
 LAYOUTS = ("column", "band")
 KERNEL_NAMES = tuple(f"{b}_{s}" for b in ("strip", "column", "band")
                      for s in SWEEPS) + ("strip_vapor",) + tuple(
     f"{b}_{s}_scan" for b in LAYOUTS for s in SWEEPS) + (
-    "strip_cgrad_scan", "strip_vapor_scan")
+    "strip_cgrad_scan", "strip_vapor_scan", "compact_force",
+    "compact_force_scan")
 _SWEEP = re.compile(
     r"(strip|column|band)_(sweep|filter)_kernel<(?:\(int\))?(\d)[,>]")
 _CELL_SWEEP = re.compile(
     r"cell_sweep_kernel<(?:\(int\))?(\d),\s*(?:\(int\))?(\d)[,>]")
 _VAPOR = re.compile(r"strip_vapor_(filter|scan)_kernel")
+_COMPACT = re.compile(r"compact_(filter|scan)_kernel")
 
 
 def _kernel_of(name: str) -> str | None:
     m = _VAPOR.search(name)
     if m:
         return "strip_vapor" if m.group(1) == "filter" else "strip_vapor_scan"
+    m = _COMPACT.search(name)
+    if m:
+        return "compact_force" if m.group(1) == "filter" \
+            else "compact_force_scan"
     m = _CELL_SWEEP.search(name)
     if m:
         return f"{LAYOUTS[int(m.group(2))]}_{SWEEPS[int(m.group(1))]}"

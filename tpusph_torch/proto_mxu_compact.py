@@ -3,6 +3,8 @@ force sweep on the same inputs, on the card — the counterpart of the
 reference's ``tools/proto_mxu_compact.py``.
 
     python -m tpusph_torch.proto_mxu_compact [n] [mode] [headroom]
+    python -m tpusph_torch.proto_mxu_compact 32768 dynamic --counts \
+        --device cpu
 
 Defaults: 1,000,000 particles, the ``uniform`` bench, headroom 1.3 (the
 reference's). Builds the bench (``tpusph_torch.bench.build_bench_sim``),
@@ -17,19 +19,25 @@ reference's fields — geometry, P, the lane ratio nnbr*W / P, both times,
 the largest difference of each output row over its largest magnitude, the
 overflow rows — then one JSON line with the card's name and power limit.
 It is an entry point of its own: no path of ``Simulation`` runs the
-compacted sweep. Needs a CUDA device.
+compacted sweep. Needs a CUDA device. With ``--counts`` it times nothing
+and prints, as one JSON line, the counts of the compacted kernel's phases
+(``mxu_compact.compact_pass_counts``) and of the strip force kernel's
+(``strip_pair.warp_pass_counts``) on the same layout, on ``--device``
+(the CPU too: counts are no device measurement).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
-import sys
 from typing import NamedTuple
 
 import torch
 
 from tpusph_torch.ops import strip_pair
-from tpusph_torch.ops.mxu_compact import OCNT, compact_force, measure_union_cap
+from tpusph_torch.ops.mxu_compact import (
+    OCNT, compact_force, compact_pass_counts, measure_union_cap,
+)
 from tpusph_torch.ops.rows import ODE, ODRHO, OFX, OFY, OFZ
 from tpusph_torch.ops.strip_pair import StripBackend
 
@@ -126,16 +134,41 @@ def measure(sim, headroom: float = 1.3, reps: int = 5) -> dict:
     return measure_inputs(compact_inputs(sim, headroom), reps)
 
 
+def counts(inp: CompactInputs) -> dict:
+    """The counts of the compacted kernel's phases and of the strip force
+    kernel's on ``inp``, with the layout's geometry and P."""
+    g, cutmax2 = inp.backend.geom, inp.tabs.cutmax2["force"]
+    return dict(
+        W=g.w, ts=g.ts, t_blk=g.t_blk, nnbr=g.nnbr, n_slots=g.n_slots,
+        P=inp.P, compact=compact_pass_counts(
+            inp.fld, inp.backend.win, inp.aux.delta, g, inp.P, inp.cut,
+            cutmax2),
+        strip_force=strip_pair.warp_pass_counts(
+            inp.fld, inp.backend.win, inp.aux.delta, g, cutmax2))
+
+
 def main() -> None:
-    n = int(sys.argv[1]) if len(sys.argv) > 1 else 1_000_000
-    mode = sys.argv[2] if len(sys.argv) > 2 else "uniform"
-    headroom = float(sys.argv[3]) if len(sys.argv) > 3 else 1.3
-    if not torch.cuda.is_available():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("n", nargs="?", type=int, default=1_000_000)
+    ap.add_argument("mode", nargs="?", default="uniform")
+    ap.add_argument("headroom", nargs="?", type=float, default=1.3)
+    ap.add_argument("--counts", action="store_true",
+                    help="print the phases' counts, time nothing")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args()
+    n, mode, headroom = args.n, args.mode, args.headroom
+    if not args.counts and args.device != "cuda":
+        raise SystemExit("proto_mxu_compact: the times need --device cuda")
+    if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("proto_mxu_compact: no CUDA device")
     from tpusph_torch.bench import build_bench_sim, card_info
 
-    sim = build_bench_sim(n, mode=mode)
+    sim = build_bench_sim(n, mode=mode, device=args.device)
     sim.run(5)
+    if args.counts:
+        print(json.dumps(dict(counts(compact_inputs(sim, headroom)),
+                              particles=n, mode=mode, device=args.device)))
+        return
     rep = measure(sim, headroom)
     print(f"geom: W={rep['W']} (ceil128 {rep['W_ceil128']}) "
           f"nnbr={rep['nnbr']} ts={rep['ts']} n_slots={rep['n_slots']} "
