@@ -138,12 +138,29 @@ Phases, each of which raises on failure (exit code != 0, no result line):
  19. band    — phase 17 again on the layout after the band path.
  20. band slice — the 16^3 `dynamic` bench slice on band, GPU against CPU.
  21. ladder  — a phase-change run whose periodic column axis is too short
-               to strip takes the column kernel under "auto"; escalated
-               floors abandon the strip for the column kernel (phase
-               change on) and for band (phase change off), and three calm
-               rebuilds later the strip comes back, each with the CPU
-               run's trajectory.
-Prints the five bench JSON lines, one JSON line of the kernels (launches
+               to strip takes the column kernel on the ladder from the
+               strip; escalated floors abandon the strip for the column
+               kernel (phase change on) and for band (phase change off),
+               and three calm rebuilds later the strip comes back, each
+               with the CPU run's trajectory. (These systems are under
+               2,048 particles, where "auto" takes the dense rung: they
+               name "strip", as do the slices of phases 10, 16 and 20.)
+ 22. cases   — the five cases/ scripts through `python -m tpusph_torch.cli
+               run` (cli.main) on the card: at tools/generate_golden.py's
+               settings each reproduces its tests/golden/log.<case> rows
+               (rtol 2e-3, a floor of 1e-5 of the column's largest
+               magnitude, Atoms exact; dense for water_collapse, droplet
+               and boiling, the ladder for the other two); heat_slab as
+               committed (dx 0.02, 1000 steps) keeps its PotEng (sum of
+               e) to 1e-5 and writes its dump's three snapshots of every
+               atom; bubble_rise at
+               dx 0.01 (config 4, > 450,000 atoms) for 2 x 20 steps, with
+               the backend that ran, its kernels launched and no check
+               kernel, fix phase_change's mass ledger, the stationary wall
+               rows bitwise unmoved, overflow 0, finite thermo, and its
+               particle-steps/s over the second 20 steps.
+Prints the five bench JSON lines, one JSON line of the cases phase, one
+JSON line of the kernels (launches
 on the boiling paths, the band path and the compacted sweep's two paths;
 times and bounds from phases 11, 15, 19 and 6, the largest error of all
 comparisons; for the strip colour-gradient and vapor kernels, the three
@@ -720,10 +737,10 @@ def read_counts(names):
     return launches
 
 
-def phase_main(sim, mode, steps, windows, backend="auto"):
+def phase_main(sim, mode, steps, windows, backend="strip"):
     """One bench main path, ``mode`` "dynamic" or "boiling", on
-    ``backend`` ("auto": the strip; "band": the band backend; "pallas": the
-    column kernel); returns (launches, bench line)."""
+    ``backend`` ("strip": the strip; "band": the band backend; "pallas":
+    the column kernel); returns (launches, bench line)."""
     import numpy as np
     import torch
     from tpusph_torch.bench import run_bench
@@ -784,8 +801,8 @@ def phase_slices():
     """The CPU tests' slices on the GPU against the plain versions on the
     CPU: the 16^3 `dynamic` bench (tests/test_torch_slice.py) and the 12^3
     boiling bubble (tests/test_torch_phase_change.py)."""
-    dynamic_slice("auto")
-    bubble_slice("auto")
+    dynamic_slice("strip")
+    bubble_slice("strip")
 
 
 def dynamic_slice(backend):
@@ -1080,6 +1097,7 @@ def retry_sim(device, phase_change=True):
 
     nz = 36 if phase_change else 44
     sim = Simulation(dim=3, screen=False, device=device)
+    sim.backend_name = "strip"
     sim.create_box([0, 0, 0], [6.0, 6.0, float(nz)], periodic=(True,) * 3,
                    ntypes=1)
     ax = np.arange(6, dtype=np.float32)
@@ -1105,7 +1123,8 @@ def retry_sim(device, phase_change=True):
 def phase_ladder():
     """The backend ladder on the card: a phase-change bubble whose periodic
     z axis (10 planes, 2.5 < 4 x (cutoff + skin)) cannot strip runs on the
-    column kernel under "auto"; and the retry systems abandon the strip
+    column kernel on the ladder from the strip (its 1,440 particles would
+    take the dense rung under "auto"); and the retry systems abandon the strip
     for the column kernel (phase change on) and for band (phase change
     off), then come back to it after three calm rebuilds, each with the CPU
     run's trajectory."""
@@ -1117,7 +1136,7 @@ def phase_ladder():
     from tpusph_torch.ops.strip_pair import StripBackend
 
     reset_counts()
-    sim = build_bubble_sim("cuda", backend="auto", nz=10)
+    sim = build_bubble_sim("cuda", backend="strip", nz=10)
     n0 = sim.natoms
     sim.run(10)
     print(f"  short column axis: {type(sim._runner.backend).__name__}, "
@@ -1160,6 +1179,179 @@ def phase_ladder():
         assert err <= 5e-6, err
 
 
+# the kernels of each backend's path (the dense rung launches none)
+PATH_KERNELS = {"StripBackend": STRIP, "PallasBackend": COLUMN,
+                "BandBackend": BAND, "DenseBackend": ()}
+
+
+def run_case_cli(tag, script, var, out_dir):
+    """Write ``script`` and run it through ``python -m tpusph_torch.cli
+    run`` (``cli.main``) on the card from ``out_dir``, where its log and
+    the files it names (dumps) go; returns (simulation, log path, wall
+    seconds)."""
+    import os
+    from tpusph_torch import cli
+
+    path = os.path.join(out_dir, f"in.{tag}")
+    with open(path, "w") as f:
+        f.write(script)
+    log = os.path.join(out_dir, f"log.{tag}")
+    args = ["run", path, "--log", log, "--screen", "none"]
+    for k, v in var.items():
+        args += ["-var", k, v]
+    cwd = os.getcwd()
+    os.chdir(out_dir)
+    try:
+        t0 = time.perf_counter()
+        assert cli.main(args) == 0
+        wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    return cli.last_run.sim, log, wall
+
+
+def case_launches(sim):
+    """The launches since the last reset: the force kernel of the backend
+    that ran (where it has kernels) launched, no check kernel and no
+    kernel of a backend that did not run; returns the nonzero counts."""
+    from tpusph_torch.ops import all_kernels
+    kind = type(sim._runner.backend).__name__
+    counts = {s: k.launches for s, k in all_kernels().items()}
+    ran = {k for k, n in counts.items() if n > 0}
+    print(f"  backend {kind}; launches {dict((k, counts[k]) for k in sorted(ran))}")
+    assert not {k for k in ran if k.endswith("_scan")}, ran
+    path = PATH_KERNELS[kind]
+    if path:
+        assert counts[path[2]] > 0, f"{path[2]} never launched"
+        # a re-choice may leave the strip for its ladder's next rung and
+        # come back
+        assert ran <= set(STRIP) | set(COLUMN) | set(BAND), ran
+    else:
+        assert not ran, ran
+    return kind, {k: counts[k] for k in sorted(ran)}
+
+
+def phase_cases():
+    """The five case scripts through the CLI on the card (phase 22 of the
+    module docstring), their scripts, logs and restarts in a temporary
+    directory; prints config 4's log; returns the phase's JSON record."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cases_") as out_dir:
+        return _phase_cases(out_dir)
+
+
+def _phase_cases(out_dir):
+    import os
+    import numpy as np
+    import torch
+    from tpusph_torch import cases as caselib
+
+    record = {}
+    for name, spec in caselib.GOLDEN.items():
+        reset_counts()
+        sim, log, wall = run_case_cli(name, caselib.golden_script(name),
+                                      spec["var"], out_dir)
+        header, rows = caselib.parse_log(log)
+        gold_header, gold = caselib.parse_log(
+            os.path.join("tests", "golden", f"log.{name}"))
+        assert header == gold_header, (header, gold_header)
+        assert rows[-1, 0] == gold[-1, 0], rows[:, 0]
+        errs = caselib.rows_within_bar(header, rows, gold)
+        kind, launches = case_launches(sim)
+        worst = max(e / a for e, a in errs.values() if a > 0)
+        print(f"  {name}: {sim.natoms} atoms, {len(rows)} rows within the "
+              f"golden bar (largest error {worst:.3f} of the bar; "
+              f"{errs}), {wall:.1f} s")
+        record[name] = dict(backend=kind, atoms=sim.natoms, wall_s=wall,
+                            worst_of_bar=worst, launches=launches)
+
+    # heat_slab as committed (dx 0.02, 1000 steps, its dump): sum(e)
+    # (PotEng) is conserved by conduction; the dump holds its three
+    # snapshots of every atom
+    reset_counts()
+    sim, log, wall = run_case_cli(
+        "heat_slab_dx0.02", open("cases/heat_slab/in.heat_slab").read(),
+        {}, out_dir)
+    header, rows = caselib.parse_log(log)
+    assert np.isfinite(rows).all() and rows[-1, 0] == 1000, rows[:, 0]
+    pe = rows[:, header.index("PotEng")]
+    drift = float(np.abs(pe - pe[0]).max() / pe[0])
+    kind, launches = case_launches(sim)
+    dump = open(os.path.join(out_dir, "dump.heat_slab")).read().split("\n")
+    snaps = [int(dump[k + 1]) for k, line in enumerate(dump)
+             if line == "ITEM: TIMESTEP"]
+    natoms = [int(dump[k + 1]) for k, line in enumerate(dump)
+              if line == "ITEM: NUMBER OF ATOMS"]
+    print(f"  heat_slab dx 0.02: {sim.natoms} atoms, PotEng drift {drift:.2e} "
+          f"(bound 1e-5), dump steps {snaps} of {natoms} atoms, {wall:.1f} s")
+    assert drift <= 1e-5, drift
+    assert snaps == [0, 500, 1000], snaps
+    assert natoms == [sim.natoms] * 3, natoms
+    record["heat_slab_dx0.02"] = dict(backend=kind, atoms=sim.natoms,
+                                      wall_s=wall, pe_drift=drift,
+                                      dump_steps=snaps, launches=launches)
+
+    # bubble_rise at dx 0.01: config 4 at its full size
+    lines = caselib.build_lines("cases/bubble_rise/in.bubble_rise")
+    snap = [os.path.join(out_dir, f"bubble_rise_full.{k}.npz")
+            for k in (0, 1)]
+    script = "\n".join(lines + [
+        "thermo 10", "thermo_style custom step time ke atoms",
+        f"write_restart {snap[0]}", "run 20", "run 20",
+        f"write_restart {snap[1]}"]) + "\n"
+    reset_counts()
+    sim, log, wall = run_case_cli("bubble_rise_dx0.01", script,
+                                  {"dx": "0.01"}, out_dir)
+    kind, launches = case_launches(sim)
+    header, rows = caselib.parse_log(log)
+    assert np.isfinite(rows).all() and rows[-1, 0] == 40, rows
+    assert int(sim.aux.overflow.sum()) == 0, "overflow at the end"
+    print("  " + open(log).read().replace("\n", "\n  ").rstrip())
+    loops = [line.split() for line in open(log)
+             if line.startswith("Loop time of")]
+    loop_s, steps, atoms = float(loops[-1][3]), int(loops[-1][8]), \
+        int(loops[-1][11])
+    rate = atoms * steps / loop_s
+    a, b = (dict(np.load(p)) for p in snap)
+    n0 = len(a["staged_tag"])
+    assert n0 > 450_000, n0
+    ia, ib = np.argsort(a["staged_tag"]), np.argsort(b["staged_tag"])
+    np.testing.assert_array_equal(a["staged_tag"][ia], b["staged_tag"][ib])
+    wall_a = ~a["staged_mobile"][ia]
+    assert wall_a.sum() > 0
+    moved = int((a["staged_x"][ia][wall_a]
+                 != b["staged_x"][ib][wall_a]).any(1).sum())
+    m0, m1 = (z["staged_rmass"].astype(np.float64) for z in (a, b))
+    t0, t1 = a["staged_type"], b["staged_type"]
+    cfg = sim.phase_change_config
+    debit = float(m0[t0 == 1].sum() - m1[t1 == 1].sum())
+    gain = float(m1[t1 == 2].sum() - m0[t0 == 2].sum())
+    dmass = abs(float(m1.sum() - m0.sum())) / float(m0.sum())
+    events = debit / cfg.dm
+    rechoices = sim._strip_violations + sim._strip_decays
+    print(f"  bubble_rise dx 0.01: {n0} atoms on {kind} (strip W "
+          f"{getattr(sim._strip_geom, 'w', None)}), {rechoices} re-choices "
+          f"({sim._strip_violations} violations, {sim._strip_decays} "
+          f"decays); {rate:.4g} particle-steps/s over the last {steps} "
+          f"steps ({loop_s:.3f} s); wall rows moved {moved} of "
+          f"{int(wall_a.sum())}; mass drift {dmass:.2e} (bound 1e-6); "
+          f"liquid debit {debit:.6e} vs vapour gain {gain:.6e} "
+          f"(~{events:.1f} events of dm {cfg.dm:.3e}); {wall:.1f} s")
+    assert moved == 0, moved
+    assert dmass <= 1e-6, dmass
+    assert abs(debit - gain) <= 1e-5 * max(abs(debit), cfg.dm), (debit,
+                                                                  gain)
+    record["bubble_rise_dx0.01"] = dict(
+        backend=kind, atoms=n0, particle_steps_per_s=rate, loop_s=loop_s,
+        steps=steps, rechoices=rechoices,
+        violations=sim._strip_violations, decays=sim._strip_decays,
+        strip_w=getattr(sim._strip_geom, "w", None), launches=launches,
+        wall_rows=int(wall_a.sum()), wall_rows_moved=moved,
+        mass_drift=dmass, events=events, wall_s=wall,
+        card=torch.cuda.get_device_name(0))
+    return record
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--particles", type=int, default=1_000_000)
@@ -1175,7 +1367,7 @@ def main() -> int:
     from tpusph_torch.bench import build_bench_sim, card_info
     from tpusph_torch.ops import cuda_build
 
-    nphases = 21
+    nphases = 22
     count = iter(range(1, nphases + 1))
 
     def phase(title, fn, *a):
@@ -1258,6 +1450,9 @@ def main() -> int:
           "band")
     phase("ladder: cannot strip -> column kernel; abandon -> column or band "
           "-> strip retry", phase_ladder)
+    case_record = phase("cases: the five scripts through tpusph_torch.cli "
+                        "(golden rows; heat_slab dx 0.02; bubble_rise dx "
+                        "0.01)", phase_cases)
 
     kernels = []
     for s in KERNELS:
@@ -1292,6 +1487,7 @@ def main() -> int:
     print(json.dumps(boiling))
     print(json.dumps(column))
     print(json.dumps(band))
+    print(json.dumps({"cases": case_record}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

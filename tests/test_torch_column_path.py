@@ -87,12 +87,14 @@ def test_bubble_on_column_kernel_matches_dense(mode):
 
 def test_phase_change_that_cannot_strip_takes_column_kernel():
     """A periodic column axis shorter than 4 x (cutoff + skin): the seam
-    bands would overlap, so no strip geometry exists. Under "auto" a
-    phase-change run goes to the column kernel and fires events; the JAX
-    package's ladder (its TPU form, "strip") picks its column kernel on
-    the same inputs; a run without phase change takes band, with the band
-    geometry the JAX package's chooser gives on the same inputs."""
-    sim = build_bubble_sim(device="cpu", backend="auto", nz=NZ_SHORT)
+    bands would overlap, so no strip geometry exists. On the ladder from
+    the strip ("strip", what "auto" takes above 2,048 particles; these
+    1,440 would take the dense rung) a phase-change run goes to the column
+    kernel and fires events; the JAX package's ladder (its TPU form,
+    "strip") picks its column kernel on the same inputs; a run without
+    phase change takes band, with the band geometry the JAX package's
+    chooser gives on the same inputs."""
+    sim = build_bubble_sim(device="cpu", backend="strip", nz=NZ_SHORT)
     n0 = sim.natoms
     sim.run(4)
     assert isinstance(sim._runner.backend, PallasBackend)
@@ -103,7 +105,7 @@ def test_phase_change_that_cannot_strip_takes_column_kernel():
     assert isinstance(ref._select_backend(), JPallasBackend)
     assert ref._select_backend().geom.cap == sim._runner.backend.geom.cap
 
-    plain = build_bubble_sim(device="cpu", backend="auto", nz=NZ_SHORT)
+    plain = build_bubble_sim(device="cpu", backend="strip", nz=NZ_SHORT)
     plain.remove_end_of_step_hook("phase_change")
     plain.phase_change_config = None
     plain.run(1)
@@ -145,13 +147,40 @@ def test_phase_change_under_band_takes_column_kernel():
 
 @pytest.mark.parametrize("name,error,match", [
     ("cellgrid", NotImplementedError, "cellgrid.py, CellGridBackend"),
-    ("dense", NotImplementedError, "tpusph/ops/dense.py"),
+    ("dense", None, None),
     ("bogus", ValueError, "unknown backend"),
 ])
 def test_backends_not_ported_raise(name, error, match):
-    """The rungs of the reference's ladder that have no port yet raise and
-    name the reference's module that is not ported; an unknown name is an
-    error."""
+    """The rung of the reference's ladder that has no port yet (the cell
+    grid's XLA sweeps) raises and names the reference's module; an unknown
+    name is an error. The dense rung is ported: the bubble runs on it in
+    insert mode for STEPS steps and is held to the JAX package's dense
+    backend at the bars of ``test_bubble_on_column_kernel_matches_dense``
+    (the same events, per-phase sums, originals, inserted positions)."""
     sim = build_bubble_sim(device="cpu", backend=name)
-    with pytest.raises(error, match=match):
-        sim.run(1)
+    if error is not None:
+        with pytest.raises(error, match=match):
+            sim.run(1)
+        return
+    ref = jax_sim(mode="insert")
+    n0 = ref.natoms
+    ref.run(STEPS)
+    sim.run(STEPS)
+    from tpusph_torch.ops.dense import DenseBackend
+    assert isinstance(sim._runner.backend, DenseBackend)
+    assert ref.natoms > n0 and sim.natoms == ref.natoms
+    ta, tb = ref.get("type"), sim.get("type")
+    for field in ("rmass", "e"):
+        for phase in (1, 2):
+            a = float(ref.get(field)[ta == phase].astype(np.float64).sum())
+            b = float(sim.get(field)[tb == phase].astype(np.float64).sum())
+            assert b == pytest.approx(a, rel=1e-4), (field, phase)
+    a, b = originals(ref, n0), originals(sim, n0)
+    d = b["x"] - a["x"]
+    b["x"] = a["x"] + d - L * np.round(d / L)
+    for f in ("x", "e", "rmass"):
+        np.testing.assert_allclose(b[f], a[f], rtol=1e-4, atol=1e-5,
+                                   err_msg=f)
+    xa, xb = inserted_x(ref, n0), inserted_x(sim, n0)
+    assert len(xa) == len(xb)
+    np.testing.assert_allclose(xb, xa, rtol=1e-4, atol=1e-5)

@@ -42,6 +42,9 @@ def _sim(extra=None, sim=None, config_cls=None, n=12, nz=12):
     h = 2.4 * dx
     if sim is None:
         sim = Simulation(dim=3, screen=False, device="cpu")
+        # the ladder from the strip: "auto" takes the dense rung at 2,048
+        # particles or fewer
+        sim.backend_name = "strip"
     sim.create_box([0, 0, 0], [L, L, nz * dx], periodic=(True,) * 3,
                    ntypes=1)
     ax = np.arange(n, dtype=np.float32) * dx

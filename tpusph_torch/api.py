@@ -1,20 +1,24 @@
-"""Python-first user API — the subset of ``tpusph/api.py`` that the bench
-configuration drives (``tpusph/bench.py::build_bench_sim``).
+"""Python-first user API — the counterpart of ``tpusph/api.py``'s
+``Simulation`` on one device, the object the input-script interpreter
+(``tpusph_torch.script``) drives.
 
 ``Simulation`` owns the config, the particle state on one explicit torch
 ``device``, and the step loop. Particle setup is staged host-side in numpy;
-``run`` builds the device state, chooses the strip geometry from the
-measured particle distribution, and steps.
+``run`` builds the device state, chooses the backend (and its geometry from
+the measured particle distribution), and steps.
 
-Ported: create_box, add_particles, the pair_* styles of the bench
-(rhosum, taitwater, heatconduction with the /phasechange variant,
-surfacetension), tables, thermo, the end-of-step hook registry and
-configure_phase_change (fix phase_change), the backend ladder in its TPU
-form (strip, then band for a run without phase change, then the column
-kernel), run (with the violation re-choice, the margin decay and the strip
-retry after an abandoned geometry), get, natoms. Not ported yet (ROADMAP):
-the dense and cellgrid-sweep backends, the script layer, dumps and
-restarts.
+Ported: the setup surface (dimension, kernel, create_box, add_particles,
+create_atoms_lattice, groups, set, fix meso/stationary), every pair style
+(rhosum, taitwater[/morris], idealgas, lj, heatconduction with the
+/phasechange variant, surfacetension), the end-of-step hook registry and
+configure_phase_change (fix phase_change), the backend ladder (dense at
+2,048 particles or fewer; then strip, band for a run without phase change,
+the column kernel), run (with the violation re-choice, the margin decay and
+the strip retry after an abandoned geometry), the output scheduler (thermo
+with every column, dumps, periodic restarts, each at its own cadence) and
+the run-end Timer table, get, natoms. Not ported (ROADMAP Queue 1 items 5
+and 6): the cell grid's XLA sweeps (runs with more than 6 types) and bricks
+(``set_mesh``, ``balance``).
 
 Entry points run on the card: ``Simulation()`` takes the CUDA device and
 raises where there is none; the CPU is used only when asked for with
@@ -25,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 import warnings
 from typing import Callable, Dict, List, Optional
 
@@ -32,8 +37,10 @@ import numpy as np
 import torch
 
 from tpusph_torch import grid as gridlib
+from tpusph_torch import kernels, lattice
 from tpusph_torch.io.thermo import ThermoWriter
 from tpusph_torch.ops.band_pair import BandBackend, choose_band_geometry
+from tpusph_torch.ops.dense import DenseBackend
 from tpusph_torch.ops.pallas_pair import PallasBackend
 from tpusph_torch.ops.phase_change import (
     PhaseChangeConfig, make_end_of_step_hook,
@@ -43,15 +50,20 @@ from tpusph_torch.ops.strip_pair import (
     StripBackend, choose_strip_geometry, pad_window_to_vreg,
 )
 from tpusph_torch.params import PairTables, PhysicsSpec
-from tpusph_torch.runner import Runner, thermo_scalars
+from tpusph_torch.runner import (
+    Runner, thermo_pressure, thermo_scalars, thermo_virial_pressure,
+)
 from tpusph_torch.state import (
     Box, ParticleState, state_from_arrays, state_to_numpy,
 )
 
-# the reference's modules that the backend ladder still waits for
+# the reference's modules that the port still waits for
 _CELLGRID_MODULE = ("the cell grid's XLA sweeps (tpusph/ops/cellgrid.py, "
-                    "CellGridBackend), not ported")
-_DENSE_MODULE = "the dense O(N^2) backend (tpusph/ops/dense.py), not ported"
+                    "CellGridBackend), not ported: ROADMAP Queue 1 item 5")
+_BRICKS_MODULE = ("bricks, the spatial decomposition over devices "
+                  "(tpusph/dist.py), not ported: ROADMAP Queue 1 item 6")
+# `auto` takes the dense backend at this many particles or fewer
+DENSE_MAX = 2048
 
 
 class CapacityOverflow(RuntimeError):
@@ -103,9 +115,11 @@ class Simulation:
         self.step_count: int = 0
         self.time_acc: float = 0.0
         self.capacity_pad: int = 0      # extra dead slots (phase-change pool)
-        # "auto" (strip, then band for a run without phase change, then the
-        # column kernel), "strip" (the same ladder), "band" (band, then the
-        # column kernel) or "pallas" (the column kernel on the cell grid)
+        # "auto" (dense at DENSE_MAX particles or fewer; else strip, then
+        # band for a run without phase change, then the column kernel),
+        # "dense", "strip" (the ladder from the strip), "band" (band, then
+        # the column kernel) or "pallas" (the column kernel on the cell
+        # grid)
         self.backend_name: str = "auto"
         self.cell_cap: Optional[int] = None  # None = measured occupancy
         self.neighbor_skin: Optional[float] = None  # `neighbor <skin> bin`
@@ -114,9 +128,19 @@ class Simulation:
         self.screen = screen
         self._staged: Dict[str, np.ndarray] = {}
         self._next_tag = 1
+        self.groups: Dict[str, np.ndarray] = {}
         self.thermo_every: int = 0
         self.thermo_columns: List[str] = ["step", "time", "ke"]
+        # `thermo_modify norm yes`: extensive columns (ke, pe, etotal) per
+        # atom; the default prints totals
+        self.thermo_norm: bool = False
+        self.custom_columns: Dict[str, Callable] = {}
         self._thermo: Optional[ThermoWriter] = None
+        self.dumps: list = []
+        self.restart_schedule = None
+        # the run-end Timer table splits the loop time by phase (marks
+        # around every step's phases, Runner.phase_times)
+        self.timer_detail = True
         self._runner: Optional[Runner] = None
         self._runner_key = None
         # Modify::end_of_step registry: named hooks (state, tabs, dt, istep,
@@ -198,7 +222,20 @@ class Simulation:
         self.add_end_of_step_hook("phase_change",
                                   make_end_of_step_hook(config, self.spec))
 
+    def set_mesh(self, *args, **kwargs):
+        raise NotImplementedError(f"set_mesh: {_BRICKS_MODULE}")
+
+    def balance(self):
+        raise NotImplementedError(f"balance: {_BRICKS_MODULE}")
+
     # ------------------------------------------------------------------ setup
+
+    def set_dimension(self, dim: int):
+        self.spec = dataclasses.replace(self.spec, dim=dim)
+
+    def set_kernel(self, name: str):
+        self.spec = dataclasses.replace(
+            self.spec, kernel=kernels.kernel_id_from_name(name))
 
     def create_box(self, lo, hi, periodic=(True, True, True), ntypes: int = 1):
         self.box = Box.create(lo, hi, periodic, device=self.device)
@@ -232,13 +269,59 @@ class Simulation:
                             for k in new}
         mask = np.zeros(len(self._staged["x"]), bool)
         mask[len(self._staged["x"]) - n:] = True
+        self._sync_groups(n)
         return mask
+
+    def _sync_groups(self, n_new: int):
+        for k in list(self.groups):
+            self.groups[k] = np.concatenate(
+                [self.groups[k], np.zeros(n_new, bool)])
+
+    def create_atoms_lattice(self, type: int, style: str, spacing: float,
+                             region: lattice.Region, **fields) -> np.ndarray:
+        """create_atoms via a lattice fill of a region (SURVEY §2.4)."""
+        box_region = lattice.Block(lo=self.box.lo.cpu().numpy(),
+                                   hi=self.box.hi.cpu().numpy())
+        pts = lattice.lattice_points(style, spacing, region,
+                                     dim=self.spec.dim, box_region=box_region)
+        return self.add_particles(pts, type, **fields)
+
+    def define_group(self, name: str, mask: np.ndarray):
+        self.groups[name] = np.asarray(mask, bool).copy()
+
+    def group_mask(self, name: str) -> np.ndarray:
+        if name == "all":
+            return np.ones(len(self._staged["x"]), bool)
+        return self.groups[name]
+
+    def set_values(self, mask, **fields):
+        """The `set` command: adjust per-particle values on the staged data
+        (the device state, if any, is pulled first and rebuilt at the next
+        run)."""
+        self._pull_state()
+        mask = np.asarray(mask, bool)
+        for k, v in fields.items():
+            self._staged[k][mask] = v
+        self.state = None
+
+    def set_stationary(self, mask):
+        """fix meso/stationary on these particles (walls)."""
+        self._pull_state()
+        self._staged["mobile"][np.asarray(mask, bool)] = False
+        self.state = None
 
     # pair styles --------------------------------------------------------
 
     def pair_taitwater(self, morris: bool = False):
         self.spec = dataclasses.replace(self.spec, tait=not morris,
                                         morris=morris)
+
+    def pair_idealgas(self):
+        self.spec = dataclasses.replace(self.spec, ideal_gas=True,
+                                        tait=False)
+
+    def pair_lj(self):
+        self.spec = dataclasses.replace(self.spec, lj=True, tait=False)
 
     def pair_rhosum(self, every: int = 1, number_density: bool = False):
         """sph/rhosum N, or the multiphase number-density form
@@ -259,6 +342,20 @@ class Simulation:
 
     def thermo(self, every: int):
         self.thermo_every = every
+
+    def thermo_style(self, columns: List[str]):
+        self.thermo_columns = list(columns)
+        self._thermo = None
+        # `press` needs the pair virial of the force sweep (thermo.cpp
+        # pressure): flip the spec flag so the sweeps write it
+        want = "press" in self.thermo_columns
+        if want != self.spec.virial:
+            self.spec = dataclasses.replace(self.spec, virial=want)
+
+    def add_thermo_column(self, name: str, fn: Callable):
+        """fn(sim, scalars, istep) -> float, referenced by name in
+        thermo_style (the v_ / c_ equation surface)."""
+        self.custom_columns[name] = fn
 
     # ------------------------------------------------------------- state sync
 
@@ -300,23 +397,26 @@ class Simulation:
 
     def _select_backend(self):
         """The backend ladder of ``tpusph``'s ``_select_backend`` in its TPU
-        form, the card taking the TPU's place: the strip backend first;
-        where no strip geometry fits, a phase-change run takes the column
-        kernel (``PallasBackend``: the band backend has no particle pool)
-        and a run without phase change takes band; where no band geometry
-        fits either, the column kernel. ``backend_name = "band"`` enters
-        the ladder at band, ``"pallas"`` takes the column kernel for any
-        run. The reference's rung below 2,048 particles (the dense O(N^2)
-        backend) has no port yet, so ``auto`` keeps the strip for small
-        runs too."""
+        form, the card taking the TPU's place. ``auto`` takes the dense
+        backend at DENSE_MAX particles or fewer (counted when ``run``
+        starts, as the reference does: a phase-change run that grows past
+        it in one ``run`` stays dense), else the strip backend; where no
+        strip geometry fits, a phase-change run takes the column kernel
+        (``PallasBackend``: the band backend has no particle pool) and a
+        run without phase change takes band; where no band geometry fits
+        either, the column kernel. ``backend_name = "band"`` enters the
+        ladder at band, ``"pallas"`` takes the column kernel for any run,
+        ``"dense"`` the dense backend."""
         name = self.backend_name
+        if name == "auto":
+            name = "dense" if self.natoms <= DENSE_MAX else "strip"
+        if name == "dense":
+            return self._select_dense_backend()
         if self.tables.ntypes > 6:
             raise NotImplementedError(
                 f"{self.tables.ntypes} particle types: the strip, band and "
                 "column kernels take at most 6; more go to "
                 f"{_CELLGRID_MODULE}")
-        if name == "auto":
-            name = "strip"
         if name == "strip":
             backend = self._select_strip_backend()
             if backend is not None:
@@ -330,11 +430,17 @@ class Simulation:
             name = "pallas"
         if name == "pallas":
             return self._select_pallas_backend()
-        if name in ("cellgrid", "dense"):
-            module = {"cellgrid": _CELLGRID_MODULE,
-                      "dense": _DENSE_MODULE}[name]
-            raise NotImplementedError(f"backend {name!r}: {module}")
+        if name == "cellgrid":
+            raise NotImplementedError(f"backend {name!r}: {_CELLGRID_MODULE}")
         raise ValueError(f"unknown backend {name!r}")
+
+    def _select_dense_backend(self) -> DenseBackend:
+        key = ("dense", id(self.box))
+        if self._backend_cache.get("key") != key:
+            self._backend_cache = dict(key=key,
+                                       backend=DenseBackend(self.box))
+            self.aux = None
+        return self._backend_cache["backend"]
 
     def _select_strip_backend(self) -> Optional[StripBackend]:
         """The strip backend for the current particle distribution, or None
@@ -503,14 +609,39 @@ class Simulation:
 
     def _thermo_values(self, state: ParticleState, istep: int):
         sc = thermo_scalars(state)
+        natoms = sc["natoms"]
+        dim = self.spec.dim
+        # thermo_modify norm: extensive columns divided by natoms
+        norm_div = max(natoms, 1) if self.thermo_norm else 1
         vals = {}
         for c in self.thermo_columns:
             if c == "step":
                 vals[c] = istep
             elif c == "time":
                 vals[c] = self.time_acc + (istep - self.step_count) * self.dt
+            elif c == "dt":
+                vals[c] = self.dt
+            elif c == "atoms":
+                vals[c] = natoms
             elif c == "ke":
-                vals[c] = sc["ke"]
+                vals[c] = sc["ke"] / norm_div
+            elif c == "pe":
+                # internal energy plays PE's role
+                vals[c] = sc["ie"] / norm_div
+            elif c == "etotal":
+                vals[c] = (sc["ke"] + sc["ie"]) / norm_div
+            elif c == "temp":
+                vals[c] = 2.0 * sc["ke"] / max(dim * natoms, 1)
+            elif c == "density":
+                vals[c] = sc["rho_avg"]
+            elif c == "press":
+                if self.spec.virial:
+                    vals[c] = thermo_virial_pressure(state, self.box, dim)
+                else:
+                    vals[c] = thermo_pressure(
+                        state, self.tables.stacked(self.device), self.spec)
+            elif c in self.custom_columns:
+                vals[c] = float(self.custom_columns[c](self, sc, istep))
             else:
                 raise ValueError(f"unknown thermo column '{c}'")
         return vals
@@ -629,7 +760,7 @@ class Simulation:
         retry observer watches instead."""
         g = self._strip_geom
         aux = self.aux
-        if g is None:
+        if g is None or not hasattr(aux, "margin_need"):
             self._maybe_retry_strip(aux)
             return
         if self._decay_prev_w is not None:
@@ -741,11 +872,21 @@ class Simulation:
         if pre:
             self.state = runner.setup(self.state, tabs, self.step_count,
                                       self.aux)
+        # the output scheduler (src/output.cpp): thermo, each dump and the
+        # periodic restart at their own cadences; the run is chunked by
+        # their gcd, so every output step is a chunk boundary (with no
+        # cadence the run is one chunk)
         start = self.step_count
         last = start + nsteps
-        every = self.thermo_every if self.thermo_every > 0 else nsteps
+        cadences = [self.thermo_every] + [d.every for d in self.dumps]
+        if self.restart_schedule is not None:
+            cadences.append(self.restart_schedule.every)
+        cadences = [c for c in cadences if c and c > 0]
+        every = math.gcd(*cadences) if cadences else 0
+        output_time = [0.0]
 
         def callback(state, istep, aux):
+            t0 = time.perf_counter()
             self.state = state
             self.aux = aux
             self._last_cb_step = istep
@@ -754,20 +895,74 @@ class Simulation:
             if tw is not None and (istep % max(self.thermo_every, 1) == 0
                                    or istep in (start, last)):
                 tw.write_line(self._thermo_values(state, istep))
+            for d in self.dumps:
+                d.maybe_write(self, state, istep)
+            rs = self.restart_schedule
+            if rs is not None and istep > start and istep % rs.every == 0:
+                from tpusph_torch.io.restart import write_restart
+                # checkpoint at the current step (the counters advance
+                # only at the end of the run)
+                saved = (self.step_count, self.time_acc)
+                self.step_count = istep
+                self.time_acc = saved[1] + (istep - saved[0]) * self.dt
+                write_restart(rs.path_template.replace("*", str(istep)),
+                              self)
+                self.step_count, self.time_acc = saved
+            output_time[0] += time.perf_counter() - t0
 
         if tw is not None:
             tw.write_header()
         callback(self.state, start, self.aux)
+        summary = tw is not None and bool(self.screen or self.log_path)
         t0 = runner.loop_time
         self.state, self.aux = runner.run(
             self.state, tabs, self.dt, nsteps, self.aux, istep0=start,
-            every=every, callback=callback)
+            every=every, callback=callback,
+            phase_timer=summary and self.timer_detail)
         loop_time = runner.loop_time - t0
-        if tw is not None and (self.screen or self.log_path):
-            tw.write_loop_summary(loop_time, 1, nsteps, self.natoms)
+        if summary:
+            tw.write_loop_summary(
+                loop_time, 1, nsteps, self.natoms,
+                breakdown=self._timer_breakdown(runner, loop_time,
+                                                output_time[0]))
         self.time_acc += nsteps * self.dt
         self.step_count += nsteps
         return self
+
+    def _timer_breakdown(self, runner: Runner, loop_time: float,
+                         output_time: float) -> Dict[str, float]:
+        """The Pair/Neigh/Modify/Output split of the run-end Timer table
+        (src/timer.cpp): Output measured on the host, the rest split in
+        the shares of the phase times marked over the run's steps
+        (``Runner.phase_times``: CUDA events on the card) where
+        ``timer_detail`` asks for it, else all Pair."""
+        out = min(output_time, loop_time)
+        rest = max(loop_time - out, 0.0)
+        breakdown = {"Output": out}
+        phases = runner.phase_times if self.timer_detail else None
+        total = sum(phases.values()) if phases else 0.0
+        if total > 0.0:
+            for name in ("Pair", "Neigh", "Modify"):
+                breakdown[name] = rest * phases.get(name, 0.0) / total
+        else:
+            breakdown["Pair"] = rest
+        return breakdown
+
+    def _restored(self, staged: Dict[str, np.ndarray]):
+        """Install particle arrays read from a restart: the device state,
+        the runner and every geometry are rebuilt at the next run."""
+        self._staged = staged
+        self._next_tag = int(staged["tag"].max()) + 1 \
+            if len(staged["tag"]) else 1
+        self.state = None
+        self.aux = None
+        self._runner = None
+        self._runner_key = None
+        self._backend_cache = {}
+        self._strip_geom = None
+        self._strip_geom_key = None
+        self._band_geom_key = None
+        self._mcap_key = None
 
     def _check_overflow(self):
         """Fixed-capacity overflow guard: dropped rows or an uncovered

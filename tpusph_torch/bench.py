@@ -143,7 +143,9 @@ def build_bubble_sim(device=None, mode: str = "insert", prob: float = 1.0,
     ``PhaseChangeConfig`` class of another package with the same API, so
     a reference run can be built from the same numpy inputs; by default
     they are this package's, on ``device``. ``backend`` sets the
-    simulation's ``backend_name``; ``nz`` cuts the box to that many
+    simulation's ``backend_name``: on the simulation built here it is
+    "strip" unless given (the 1,728 particles are under ``auto``'s dense
+    rung), a ``sim`` passed in keeps its own; ``nz`` cuts the box to that many
     lattice planes in z (a periodic column axis too short to strip when
     below 4 x (cutoff + skin), 12 planes)."""
     from tpusph_torch.api import Simulation
@@ -151,6 +153,7 @@ def build_bubble_sim(device=None, mode: str = "insert", prob: float = 1.0,
 
     if sim is None:
         sim = Simulation(dim=3, screen=False, device=device)
+        backend = backend or "strip"
     config_cls = config_cls or PhaseChangeConfig
     if backend is not None:
         sim.backend_name = backend

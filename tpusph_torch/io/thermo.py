@@ -3,9 +3,9 @@ the counterpart of ``tpusph/io/thermo.py`` (host code, framework-free).
 
 BASELINE.json binds "LAMMPS-compatible thermo output": same column headers,
 same ``%12.8g`` numeric formatting, the ``Step ...`` header line, and the
-run-end ``Loop time of X on N procs for N steps with M atoms`` summary (the
-per-category time breakdown is not ported yet). NaN in any column aborts
-with a clear message (the Error::all analog — SURVEY §5.3).
+run-end ``Loop time of X on N procs for N steps with M atoms`` summary
+with the per-category time breakdown (src/timer.cpp). NaN in any column
+aborts with a clear message (the Error::all analog — SURVEY §5.3).
 """
 
 from __future__ import annotations
@@ -72,9 +72,17 @@ class ThermoWriter:
         self._emit(" ".join(parts).rstrip())
 
     def write_loop_summary(self, loop_time: float, nprocs: int, nsteps: int,
-                           natoms: int):
+                           natoms: int,
+                           breakdown: Optional[Dict[str, float]] = None):
         self._emit(f"Loop time of {loop_time:.6g} on {nprocs} procs "
                    f"for {nsteps} steps with {natoms} atoms")
+        if breakdown:
+            self._emit("")
+            total = max(loop_time, 1e-30)
+            for cat in ("Pair", "Neigh", "Comm", "Output", "Modify", "Other"):
+                t = breakdown.get(cat, 0.0)
+                self._emit(f"{cat:<7s} time (%) = {t:.6g} "
+                           f"({100.0 * t / total:.4g})")
 
     def close(self):
         if self.log is not None:

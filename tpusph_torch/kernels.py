@@ -27,6 +27,16 @@ CUBIC_SPLINE = 1
 QUINTIC_SPLINE = 2
 WENDLAND_C2 = 3
 
+KERNEL_NAMES = {
+    "lucy": LUCY,
+    "cubic": CUBIC_SPLINE,
+    "cubicspline": CUBIC_SPLINE,
+    "quintic": QUINTIC_SPLINE,
+    "quinticspline": QUINTIC_SPLINE,
+    "wendland": WENDLAND_C2,
+    "wendland/c2": WENDLAND_C2,
+}
+
 
 def _cdiv(c: float, t):
     """c / t as ONE float32 division. torch evaluates a Python scalar over a
@@ -164,3 +174,15 @@ def kernel_wfd(kernel_id: int, dim: int):
     dimension."""
     return partial(_WFD_FNS[kernel_id], dim=dim)
 
+
+
+def kernel_id_from_name(name: str) -> int:
+    """The kernel id of a ``kernel_style`` name: case, ``_`` and ``-``
+    are ignored (``quintic_spline``, ``Wendland-C2``)."""
+    key = name.strip().lower().replace("_", "").replace("-", "")
+    key = {"quinticspline": "quintic", "cubicspline": "cubic",
+           "wendlandc2": "wendland"}.get(key, key)
+    if key not in KERNEL_NAMES:
+        raise ValueError(f"unknown SPH kernel '{name}' "
+                         f"(have {sorted(KERNEL_NAMES)})")
+    return KERNEL_NAMES[key]

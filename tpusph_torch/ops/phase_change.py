@@ -98,6 +98,47 @@ def _generator(config: PhaseChangeConfig, istep: int,
     return gen
 
 
+# (i, j) entries per row chunk of the dense vapor query
+_DENSE_VAPOR_CHUNK = 1 << 22
+
+
+def _vapor_neighbor_dense(state: ParticleState, box: Box, vtype: int,
+                          cut: float):
+    """(count, nearest, nearest_rsq, nearest_owned, nearest_owned_rsq) of
+    the type-``vtype`` neighbours within ``cut`` of every row, over all
+    pairs: the dense backend's query (``tpusph``'s
+    ``_vapor_neighbor_dense``), exactly. rsq is formed as the cell-grid
+    query forms it (``cellgrid._rsq_fma``, the reference's order on the
+    CPU), the threshold is cut^2 in float32, and the nearest is the first
+    minimum in row order (``jnp.argmin``'s tie rule; row 0 where there is
+    none). Chunked over i rows."""
+    from tpusph_torch.ops.cellgrid import _rsq_fma
+    n = state.capacity
+    dev = state.device
+    cut2 = float(np.float32(cut * cut))
+    alive = state.alive
+    is_vap = (state.type == vtype) & alive
+    jj = torch.arange(n, device=dev)
+    out = {k: [] for k in ("count", "near", "rsq", "near_o", "rsq_o")}
+    step = max(1, _DENSE_VAPOR_CHUNK // max(n, 1))
+    for i0 in range(0, n, step):
+        i1 = min(i0 + step, n)
+        dx = box.min_image(state.x[i0:i1, None, :] - state.x[None, :, :])
+        rsq = _rsq_fma(dx[..., 0], dx[..., 1], dx[..., 2])
+        ii = torch.arange(i0, i1, device=dev)
+        mask = (is_vap[None, :] & (ii[:, None] != jj[None, :])
+                & (rsq < cut2) & alive[i0:i1, None])
+        out["count"].append(mask.sum(1))
+        for key, m in (("", mask), ("_o", mask & state.owned[None, :])):
+            big = torch.where(m, rsq, float("inf"))
+            mn = big.min(1).values
+            first = torch.where(big == mn[:, None], jj[None, :], n).min(1)
+            out["near" + key].append(first.values)
+            out["rsq" + key].append(mn)
+    return tuple(torch.cat(out[k]) for k in
+                 ("count", "near", "rsq", "near_o", "rsq_o"))
+
+
 def make_end_of_step_hook(config: PhaseChangeConfig, spec: PhysicsSpec):
     """hook(state, tabs, dt, istep, aux, backend, box) -> (state, aux),
     called by the Runner after final_integrate (Modify::end_of_step)."""
@@ -110,9 +151,10 @@ def make_end_of_step_hook(config: PhaseChangeConfig, spec: PhysicsSpec):
                                              backend, box, aux)
         # insertion invalidates the sort (strip or cell grid): blow up the
         # displacement reference so the next prepare rebuilds before any
-        # force pass
-        bump = torch.where(changed, float("inf"), 0.0)
-        aux = dataclasses.replace(aux, x_ref=aux.x_ref + bump)
+        # force pass (the dense backend keeps no sort)
+        if hasattr(aux, "x_ref"):
+            bump = torch.where(changed, float("inf"), 0.0)
+            aux = dataclasses.replace(aux, x_ref=aux.x_ref + bump)
         return state, aux
 
     return hook
@@ -131,8 +173,12 @@ def _apply_phase_change(state: ParticleState, istep: int,
     liquid = state.alive & state.owned & (state.type == config.liquid_type)
 
     if config.require_interface or config.mode == "grow":
-        vcount, vnearest, _, vnear_o, vrsq_o = backend.vapor_neighbor(
-            state, box, config.vapor_type, cut, aux)
+        if hasattr(backend, "vapor_neighbor"):
+            vcount, vnearest, _, vnear_o, vrsq_o = backend.vapor_neighbor(
+                state, box, config.vapor_type, cut, aux)
+        else:
+            vcount, vnearest, _, vnear_o, vrsq_o = _vapor_neighbor_dense(
+                state, box, config.vapor_type, cut)
     else:
         vcount = torch.ones(n, dtype=torch.int64, device=dev)
         vnearest = torch.zeros(n, dtype=torch.int64, device=dev)

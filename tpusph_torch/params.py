@@ -145,6 +145,17 @@ class PairTables:
         self._set2("visc", i, j, viscosity)
         self._set2("cut", i, j, h)
 
+    def set_idealgas(self, i, j, viscosity, h):
+        """pair_coeff i j sph/idealgas alpha h."""
+        self._set2("visc", i, j, viscosity)
+        self._set2("cut", i, j, h)
+
+    def set_lj(self, i, j, viscosity, h):
+        """pair_coeff i j sph/lj nu h (the vdW EOS itself is
+        parameter-free in LJ reduced units)."""
+        self._set2("visc", i, j, viscosity)
+        self._set2("cut", i, j, h)
+
     def set_rhosum(self, i, j, h):
         self._set2("cut_rho", i, j, h)
 
@@ -164,6 +175,13 @@ class PairTables:
         self._set2("cut_tension", i, j, h)
         self._set2("cut_tension", i, i, h)
         self._set2("cut_tension", j, j, h)
+
+    def set_color(self, i, color):
+        self._set1("color", i, color)
+
+    def set_gravity(self, g):
+        """fix gravity's body acceleration vector."""
+        self.gravity = np.asarray(g, np.float32).reshape(3).copy()
 
 
 def tables_from_numpy(arrays: dict) -> PairTables:
