@@ -159,9 +159,33 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                kernel, fix phase_change's mass ledger, the stationary wall
                rows bitwise unmoved, overflow 0, finite thermo, and its
                particle-steps/s over the second 20 steps.
-Prints the five bench JSON lines, one JSON line of the cases phase, one
-JSON line of the kernels (launches
-on the boiling paths, the band path and the compacted sweep's two paths;
+ 23. bricks  — the `dynamic` bench at 48^3 for 30 steps on one device (the
+               strip) and in 4 bricks on the one card (Simulation.set_mesh:
+               tpusph_torch.dist, every brick on cuda:0) with each inner —
+               strip, column kernel, cell grid, and the strip on a 2 x 2
+               procgrid (the corner relay): each held to the one-device
+               run at tests/test_dist.py's bars (minimum-image x and v to
+               5e-4, rho rtol 1e-4, 2e-4 for the column inner, e rtol 1e-4
+               / atol 1e-5, the same tags and natoms), its inner, the
+               kernels it launched and no other (no check kernel), overflow
+               0; then `python -m tpusph_torch.cli run <heat_slab> --mesh 4`
+               (cli.main on the card by default) at its golden settings:
+               the golden rows within phase 22's bar.
+ 24. config 5 — BASELINE.json config 5, the bench's `boiling` at 2M
+               particles (the cube rounding decides the count: 126^3), on
+               one device (the strip) and with set_mesh(4) on the one card
+               (the strip in every brick), each one warmup that passes with
+               no re-choice and ONE timed window of 20 steps (run_bench's
+               three windows cut to one for the time limit): phase 10's
+               ledgers, overflow 0, every tag owned once, the owned rows
+               summing to natoms; prints each path's particle-steps/s, strip
+               W, rebuilds, re-choices, events, launches and run-end Timer
+               table, and the 4-brick over one-device rate (recorded, not
+               gated).
+Prints the five bench JSON lines, one JSON line each of the cases, the
+bricks and the config 5 phases, one JSON line of the kernels (launches
+on the boiling paths, config 5's brick path, the band path and the
+compacted sweep's two paths;
 times and bounds from phases 11, 15, 19 and 6, the largest error of all
 comparisons; for the strip colour-gradient and vapor kernels, the three
 column and the three band kernels and the compacted kernel also the
@@ -1184,11 +1208,11 @@ PATH_KERNELS = {"StripBackend": STRIP, "PallasBackend": COLUMN,
                 "BandBackend": BAND, "DenseBackend": ()}
 
 
-def run_case_cli(tag, script, var, out_dir):
+def run_case_cli(tag, script, var, out_dir, extra=()):
     """Write ``script`` and run it through ``python -m tpusph_torch.cli
-    run`` (``cli.main``) on the card from ``out_dir``, where its log and
-    the files it names (dumps) go; returns (simulation, log path, wall
-    seconds)."""
+    run`` (``cli.main``, with the arguments ``extra``) on the card from
+    ``out_dir``, where its log and the files it names (dumps) go; returns
+    (simulation, log path, wall seconds)."""
     import os
     from tpusph_torch import cli
 
@@ -1196,7 +1220,7 @@ def run_case_cli(tag, script, var, out_dir):
     with open(path, "w") as f:
         f.write(script)
     log = os.path.join(out_dir, f"log.{tag}")
-    args = ["run", path, "--log", log, "--screen", "none"]
+    args = ["run", path, "--log", log, "--screen", "none", *extra]
     for k, v in var.items():
         args += ["-var", k, v]
     cwd = os.getcwd()
@@ -1352,6 +1376,199 @@ def _phase_cases(out_dir):
     return record
 
 
+# bricks vs one device (phase 23): the inner of each 4-brick run, the
+# procgrid, the kernels it launches, and its rho bar (tests/test_dist.py)
+BRICK_CASES = (
+    ("strip 4", "strip", None, None, STRIP[:3], 1e-4),
+    ("column 4", "pallas", None, None, COLUMN, 2e-4),
+    ("cellgrid 4", "cellgrid", None, None, (), 1e-4),
+    ("strip 2x2", "strip", (2, 2), (0, 1), STRIP[:3], 1e-4),
+)
+BRICK_INNERS = {"strip": "StripBackend", "pallas": "PallasBackend",
+                "cellgrid": "CellGridBackend"}
+
+
+def brick_run(n, steps, backend, nbricks=1, shape=None, axes=None,
+              device="cuda", mode="dynamic"):
+    """The bench in ``mode`` at ``n`` particles for ``steps`` steps on one
+    device or in ``nbricks`` bricks (``Simulation.set_mesh``, every brick
+    on the one card), the launch counts reset just before the run;
+    returns (simulation, fields by tag, wall seconds)."""
+    from tpusph_torch.bench import _sync, build_bench_sim
+    sim = build_bench_sim(n, mode=mode, device=device, backend=backend)
+    if nbricks > 1:
+        sim.set_mesh(nbricks, shape=shape, axes=axes)
+    reset_counts()
+    t0 = time.perf_counter()
+    sim.run(steps)
+    _sync(sim)
+    wall = time.perf_counter() - t0
+    return sim, {f: sim.get(f) for f in ("x", "v", "rho", "e", "tag")}, wall
+
+
+def phase_bricks_small(n=48 ** 3, steps=30, device="cuda"):
+    """Phase 23: the `dynamic` bench at ``n`` particles for ``steps`` steps
+    on one device (the strip) and in 4 bricks on the one card with each
+    inner (strip, column kernel, cell grid; and the strip on a 2 x 2
+    procgrid, the corner relay): each brick run held to the one-device run
+    at tests/test_dist.py's bars (minimum-image x and v to 5e-4, rho rtol
+    1e-4 or 2e-4 for the column inner, e rtol 1e-4 / atol 1e-5, the same
+    tags and natoms), its inner, the kernels it launched and no other (no
+    check kernel), and no overflow. Returns the phase's record."""
+    import numpy as np
+    one, a, wall1 = brick_run(n, steps, "strip", device=device)
+    if device == "cuda":
+        read_counts(STRIP[:3])
+    L = one.box.length.cpu().numpy().astype(np.float64)
+    record = dict(particles=one.natoms, steps=steps, one_device_s=wall1,
+                  runs={})
+    print(f"  one device: {one.natoms} particles, strip W "
+          f"{one._strip_geom.w}, {steps} steps in {wall1:.2f} s")
+    for label, backend, shape, axes, names, rho_tol in BRICK_CASES:
+        sim, b, wall = brick_run(n, steps, backend, 4, shape, axes, device)
+        be = sim._runner.backend
+        launches = read_counts(names) if device == "cuda" else {}
+        dx = b["x"] - a["x"]
+        dx = np.abs(dx - L * np.round(dx / L)).max()
+        dv = float(np.abs(b["v"] - a["v"]).max())
+        drho = float((np.abs(b["rho"] - a["rho"])
+                      / np.abs(a["rho"])).max())
+        de = float((np.abs(b["e"] - a["e"]) / np.abs(a["e"])).max())
+        ov = int(sim.aux.overflow.sum())
+        w = be.strip_geom.w if be.strip_geom is not None else None
+        print(f"  {label}: inner {type(be.inner).__name__}, procgrid "
+              f"{sim.brick_spec.shape} over axes {sim.brick_spec.axes}, "
+              f"strip W {w}, halo rows {be.halo_rows(sim.aux)}, "
+              f"rebuilds {sim.rebuilds}; max |dx| {dx:.3e}, |dv| "
+              f"{dv:.3e}, rho rel {drho:.3e}, e rel {de:.3e}; overflow "
+              f"{ov}; {wall:.2f} s")
+        assert type(be.inner).__name__ == BRICK_INNERS[backend], be.inner
+        assert sim.natoms == one.natoms
+        assert np.array_equal(a["tag"], b["tag"])
+        assert ov == 0, ov
+        assert dx <= 5e-4 and dv <= 5e-4, (dx, dv)
+        np.testing.assert_allclose(b["rho"], a["rho"], rtol=rho_tol)
+        np.testing.assert_allclose(b["e"], a["e"], rtol=1e-4, atol=1e-5)
+        record["runs"][label] = dict(
+            inner=type(be.inner).__name__, shape=sim.brick_spec.shape,
+            strip_w=w, halo_rows=be.halo_rows(sim.aux),
+            rebuilds=sim.rebuilds, launches=launches, max_dx=float(dx),
+            max_dv=dv, rho_rel=drho, wall_s=wall)
+    if device == "cuda":
+        record["cli_mesh4"] = cli_mesh_case()
+    return record
+
+
+def cli_mesh_case(name="heat_slab"):
+    """``python -m tpusph_torch.cli run <script> --mesh 4`` on the card by
+    default (cli.main, no --device): the golden run of ``name`` in four
+    bricks, its thermo rows within the golden bar (phase 22's), the force
+    kernel of the inner launched and no other. Returns its record."""
+    import os
+    import tempfile
+    from tpusph_torch import cases as caselib
+    spec = caselib.GOLDEN[name]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as out_dir:
+        reset_counts()
+        sim, log, wall = run_case_cli(f"{name}_mesh4",
+                                      caselib.golden_script(name),
+                                      spec["var"], out_dir,
+                                      extra=("--mesh", "4"))
+        header, rows = caselib.parse_log(log)
+        _, gold = caselib.parse_log(os.path.join("tests", "golden",
+                                                 f"log.{name}"))
+        assert rows[-1, 0] == gold[-1, 0], rows[:, 0]
+        errs = caselib.rows_within_bar(header, rows, gold)
+    inner = type(sim._runner.backend.inner).__name__
+    assert sim.device.type == "cuda" and len(sim.mesh) == 4
+    launches = read_counts({"StripBackend": ("strip_force",),
+                            "PallasBackend": ("column_force",)}[inner])
+    share = max(e / a for e, a in errs.values() if a > 0)
+    print(f"  cli --mesh 4, {name} (golden settings): {sim.natoms} atoms "
+          f"in bricks {sim.brick_spec.shape} on {inner}, golden rows "
+          f"within the bar (largest share {share:.3g}), {wall:.1f} s")
+    return dict(case=name, inner=inner, atoms=sim.natoms,
+                bar_share=share, launches=launches, wall_s=wall)
+
+
+def config5_run(sim, label, steps, out_dir):
+    """One config 5 path (``run_bench``: warmup windows until one passes
+    with no geometry re-choice, then ONE timed window of ``steps``) with
+    the run-end Timer table written to a log in ``out_dir``; the boiling
+    ledgers (phase_main's: owned mass drift <= 1e-6, momentum drift <=
+    1e-4 of sum m|v0|, insertions > 0 with the vapour count and the
+    liquid debit to match), overflow 0, every tag owned by exactly one
+    brick and the owned rows summing to natoms. Returns (launches, bench
+    line)."""
+    import os
+    import numpy as np
+    sim.log_path = os.path.join(out_dir, f"log.config5_{label}")
+    n0 = sim.natoms
+    launches, bench = phase_main(sim, "boiling", steps, 1)
+    bricks = sim.mesh is not None
+    be = sim._runner.backend
+    tags = sim.get("tag")
+    owned = int((sim.state.alive & sim.state.owned).sum())
+    assert len(np.unique(tags)) == len(tags) == owned == sim.natoms, (
+        len(tags), owned, sim.natoms)
+    assert sim.natoms == n0 + bench["insertions"]
+    if bricks:
+        cap = sim.local_cap
+        per = [int((sim.state.alive & sim.state.owned)[b * cap:(b + 1) * cap]
+                   .sum()) for b in range(len(sim.mesh))]
+        assert sum(per) == sim.natoms, per
+        bench["owned_per_brick"] = per
+        bench["halo_rows"] = be.halo_rows(sim.aux)
+    with open(sim.log_path) as f:
+        lines = [ln.rstrip() for ln in f]
+    # the timed window's table: the last one in the log
+    last = max(i for i, ln in enumerate(lines) if ln.startswith("Loop time"))
+    timer = [ln for ln in lines[last:] if "time (%)" in ln
+             or ln.startswith("Loop time")]
+    bench.update(rebuilds=sim.rebuilds, timer=timer,
+                 inner=type(be.inner).__name__ if bricks
+                 else type(be).__name__)
+    print(f"  config 5 {label}: {bench['particles']} particles, "
+          f"{bench['value']} particle-steps/s over {steps} steps (one "
+          f"window), strip W {bench['strip_w']}, rebuilds "
+          f"{bench['rebuilds']} (per timed window "
+          f"{bench['rebuilds_per_window']}), re-choices "
+          f"{bench['geometry_rechoices']}, events {bench['insertions']}, "
+          f"launches {launches}, {bench['power_limit']} "
+          f"{bench['device_name']}")
+    for ln in timer:
+        print(f"    {ln}")
+    return launches, bench
+
+
+def phase_config5(n=2_000_000, steps=20):
+    """Phase 24: BASELINE.json config 5 (3D boiling at 2M particles) in the
+    bench's `boiling` mode, on one device (the strip) and in 4 bricks on
+    the one card (the strip in every brick), one warmup passing with no
+    re-choice and one timed window of ``steps`` each (config5_run). The
+    4-brick rate against the one-device rate is the decomposition's cost
+    on one card, recorded, not gated. Returns (brick launches, record)."""
+    import tempfile
+    from tpusph_torch.bench import build_bench_sim
+    record = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_c5_") as out_dir:
+        sim = build_bench_sim(n, mode="boiling", device="cuda")
+        print(f"  the bench's cube rounding: {sim.natoms} particles")
+        _, record["one_device"] = config5_run(sim, "one", steps, out_dir)
+        del sim
+        sim = build_bench_sim(n, mode="boiling", device="cuda")
+        sim.set_mesh(4)
+        launches, record["bricks4"] = config5_run(sim, "bricks4", steps,
+                                                  out_dir)
+        assert record["bricks4"]["inner"] == "StripBackend"
+        del sim
+    record["bricks4_over_one_device"] = (record["bricks4"]["value"]
+                                         / record["one_device"]["value"])
+    print(f"  4 bricks / one device on one card: "
+          f"{record['bricks4_over_one_device']:.3f}")
+    return launches, record
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--particles", type=int, default=1_000_000)
@@ -1367,7 +1584,7 @@ def main() -> int:
     from tpusph_torch.bench import build_bench_sim, card_info
     from tpusph_torch.ops import cuda_build
 
-    nphases = 22
+    nphases = 24
     count = iter(range(1, nphases + 1))
 
     def phase(title, fn, *a):
@@ -1453,13 +1670,23 @@ def main() -> int:
     case_record = phase("cases: the five scripts through tpusph_torch.cli "
                         "(golden rows; heat_slab dx 0.02; bubble_rise dx "
                         "0.01)", phase_cases)
+    bricks_small = phase("bricks: 4 bricks on the one card vs one device, "
+                         "strip / column / cell-grid inners and a 2 x 2 "
+                         "procgrid (dynamic, 48^3, 30 steps)",
+                         phase_bricks_small)
+    brick_launches, config5 = phase(
+        "config 5: boiling at 2M particles on one device and in 4 bricks "
+        "on the one card", phase_config5)
 
     kernels = []
     for s in KERNELS:
         key = f"strip_{s}"
+        # the boiling path's launches and config 5's brick path's
         kernels.append(dict(
             name=f"{key}_sweep", route="cuda", source=SOURCES["strip"],
-            replaces=REPLACES[key], launches=launches[key], library_ms=None,
+            replaces=REPLACES[key],
+            launches=launches[key] + brick_launches[key],
+            launches_bricks=brick_launches[key], library_ms=None,
             **{**last[s], "max_abs_err": max(
                 r[s]["max_abs_err"] for r in reports if s in r)}))
     for kind, counts, after, reps in (
@@ -1488,6 +1715,8 @@ def main() -> int:
     print(json.dumps(column))
     print(json.dumps(band))
     print(json.dumps({"cases": case_record}))
+    print(json.dumps({"bricks_small": bricks_small}))
+    print(json.dumps({"config5": config5}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

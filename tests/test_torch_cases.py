@@ -199,15 +199,30 @@ def test_golden_full_log(name, tmp_path):
 
 def test_cli_runs_on_the_card_unless_asked(tmp_path):
     """``python -m tpusph_torch.cli run`` takes the card by default and
-    raises where there is none (no CPU fallback); ``--mesh`` raises;
-    ``--profile`` writes a trace."""
+    raises where there is none (no CPU fallback); ``--mesh 4`` runs the
+    script in four bricks; ``--profile`` writes a trace."""
     script = tmp_path / "in.tiny"
     script.write_text("variable x equal 1\n")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             cli.main(["run", str(script)])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        cli.main(["run", str(script), "--device", "cpu", "--mesh", "4"])
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            cli.main(["run", str(script), "--mesh", "4"])
+    # a 2D periodic block of fluid, 20 steps in four bricks (the JAX
+    # package's cell grid on one device holds its trajectory in
+    # tests/test_torch_dist.py)
+    from test_dist import PERIODIC_SCRIPT
+    block = tmp_path / "in.block"
+    block.write_text(PERIODIC_SCRIPT.format(lx=3.2, lxf=3.15)
+                     + "run 20\n")
+    assert cli.main(["run", str(block), "--device", "cpu", "--mesh", "4",
+                     "--screen", "none"]) == 0
+    sim = cli.last_run.sim
+    assert len(sim.mesh) == 4 and sim.brick_spec.shape == (4,)
+    assert sim.step_count == 20 and sim.natoms == 512
+    assert int(sim.aux.overflow.sum()) == 0
+    assert np.isfinite(sim.get("x")).all()
+    assert np.array_equal(sim.get("tag"), np.arange(1, 513))
     assert cli.main(["run", str(script), "--device", "cpu"]) == 0
     # --profile traces the run with torch.profiler into a Chrome trace
     prof = tmp_path / "prof"

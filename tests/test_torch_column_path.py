@@ -146,17 +146,17 @@ def test_phase_change_under_band_takes_column_kernel():
 
 
 @pytest.mark.parametrize("name,error,match", [
-    ("cellgrid", NotImplementedError, "cellgrid.py, CellGridBackend"),
+    ("cellgrid", None, None),
     ("dense", None, None),
     ("bogus", ValueError, "unknown backend"),
 ])
 def test_backends_not_ported_raise(name, error, match):
-    """The rung of the reference's ladder that has no port yet (the cell
-    grid's XLA sweeps) raises and names the reference's module; an unknown
-    name is an error. The dense rung is ported: the bubble runs on it in
-    insert mode for STEPS steps and is held to the JAX package's dense
-    backend at the bars of ``test_bubble_on_column_kernel_matches_dense``
-    (the same events, per-phase sums, originals, inserted positions)."""
+    """Every rung of the reference's ladder is ported, and an unknown name
+    is an error. The cell grid's sweeps and the dense rung: the bubble runs
+    on each in insert mode for STEPS steps and is held to the JAX package's
+    dense backend at the bars of
+    ``test_bubble_on_column_kernel_matches_dense`` (the same events,
+    per-phase sums, originals, inserted positions)."""
     sim = build_bubble_sim(device="cpu", backend=name)
     if error is not None:
         with pytest.raises(error, match=match):
@@ -166,8 +166,10 @@ def test_backends_not_ported_raise(name, error, match):
     n0 = ref.natoms
     ref.run(STEPS)
     sim.run(STEPS)
+    from tpusph_torch.ops.cellgrid import CellGridBackend
     from tpusph_torch.ops.dense import DenseBackend
-    assert isinstance(sim._runner.backend, DenseBackend)
+    assert isinstance(sim._runner.backend, {
+        "cellgrid": CellGridBackend, "dense": DenseBackend}[name])
     assert ref.natoms > n0 and sim.natoms == ref.natoms
     ta, tb = ref.get("type"), sim.get("type")
     for field in ("rmass", "e"):

@@ -277,14 +277,29 @@ def test_dump_modify_sort(tmp_path):
 
 
 def test_not_ported_commands_raise():
-    """``balance`` and ``set_mesh`` (bricks) raise and name the ROADMAP
-    item; ``Interpreter()`` builds its simulation on the card, so it
-    raises where there is none."""
+    """``balance`` and ``set_mesh`` (bricks) are ported: ``balance``
+    without bricks is a no-op, ``set_mesh(4)`` then ``balance`` gives the
+    JAX package's cuts and the run goes on in the balanced bricks with
+    every particle; ``Interpreter()`` builds its simulation on the card,
+    so it raises where there is none."""
+    from tpusph import dist as jdist
     interp = interp_cpu(SMALL_SCRIPT)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        interp.command("balance 1.1 shift x 10 1.05")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        interp.sim.set_mesh(4)
+    sim = interp.sim
+    interp.command("balance 1.1 shift x 10 1.05")
+    assert sim._balance_cuts is None and sim.mesh is None
+    n = sim.natoms
+    sim.set_mesh(4, shape=(2, 2), axes=(0, 1))
+    interp.command("balance 1.1 shift xy 10 1.05")
+    cutoff = sim.tables.max_cut()
+    skin = sim._skin(cutoff)
+    jbox = jax_interp(SMALL_SCRIPT).sim.box
+    want = jdist.compute_balance_cuts(
+        sim._staged["x"], jbox, (0, 1), (2, 2), cutoff + skin)
+    assert sim._balance_cuts == want
+    interp.command("run 5")
+    assert sim.brick_spec.cuts == want and sim.natoms == n
+    assert int(sim.aux.overflow.sum()) == 0
+    assert np.isfinite(sim.get("x")).all()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device=\"cpu\""):
             Interpreter()
@@ -486,19 +501,20 @@ def _uniform_tait_sim(backend: str, n_side=8, rho=1.05):
     return sim
 
 
-@pytest.mark.parametrize("backend", ["dense", "band", "strip"])
+@pytest.mark.parametrize("backend", ["dense", "band", "strip",
+                                     "cellgrid"])
 def test_virial_press_matches_eos(backend):
     """The virial pressure of a compressed Tait lattice at rest against
-    the EOS pressure (tests/test_virial.py; the cell grid's case waits for
-    its XLA sweeps, ROADMAP Queue 1 item 5). The strip needs L >= ~6h
+    the EOS pressure (tests/test_virial.py). The strip needs L >= ~6h
     (18 planes) and band 12 planes; at 8 the band chooser finds no
     geometry and the ladder would take the column kernel."""
     sim = _uniform_tait_sim(backend, n_side={"dense": 8, "band": 12,
-                                             "strip": 18}[backend])
+                                             "strip": 18,
+                                             "cellgrid": 8}[backend])
     assert sim.spec.virial
     sim.run(0)
     kind = {"dense": "DenseBackend", "band": "BandBackend",
-            "strip": "StripBackend"}[backend]
+            "strip": "StripBackend", "cellgrid": "CellGridBackend"}[backend]
     assert type(sim._runner.backend).__name__ == kind
     press = sim._thermo_values(sim.state, 0)["press"]
     p_eos = 10.0**2 / 7.0 * (1.05**7 - 1.0)

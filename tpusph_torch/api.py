@@ -16,9 +16,10 @@ configure_phase_change (fix phase_change), the backend ladder (dense at
 the column kernel), run (with the violation re-choice, the margin decay and
 the strip retry after an abandoned geometry), the output scheduler (thermo
 with every column, dumps, periodic restarts, each at its own cadence) and
-the run-end Timer table, get, natoms. Not ported (ROADMAP Queue 1 items 5
-and 6): the cell grid's XLA sweeps (runs with more than 6 types) and bricks
-(``set_mesh``, ``balance``).
+the run-end Timer table, get, natoms; the cell grid's sweeps
+(``backend_name = "cellgrid"``, and runs with more than 6 types), and
+bricks (``set_mesh``, ``balance``: the spatial decomposition of
+``tpusph_torch.dist``, with the recovery loop's re-choice over the bricks).
 
 Entry points run on the card: ``Simulation()`` takes the CUDA device and
 raises where there is none; the CPU is used only when asked for with
@@ -40,6 +41,7 @@ from tpusph_torch import grid as gridlib
 from tpusph_torch import kernels, lattice
 from tpusph_torch.io.thermo import ThermoWriter
 from tpusph_torch.ops.band_pair import BandBackend, choose_band_geometry
+from tpusph_torch.ops.cellgrid import CellGridBackend
 from tpusph_torch.ops.dense import DenseBackend
 from tpusph_torch.ops.pallas_pair import PallasBackend
 from tpusph_torch.ops.phase_change import (
@@ -57,11 +59,6 @@ from tpusph_torch.state import (
     Box, ParticleState, state_from_arrays, state_to_numpy,
 )
 
-# the reference's modules that the port still waits for
-_CELLGRID_MODULE = ("the cell grid's XLA sweeps (tpusph/ops/cellgrid.py, "
-                    "CellGridBackend), not ported: ROADMAP Queue 1 item 5")
-_BRICKS_MODULE = ("bricks, the spatial decomposition over devices "
-                  "(tpusph/dist.py), not ported: ROADMAP Queue 1 item 6")
 # `auto` takes the dense backend at this many particles or fewer
 DENSE_MAX = 2048
 
@@ -179,6 +176,21 @@ class Simulation:
         self._mcap = None
         self._mcap_key = None
         self._cap_boost = 1.0
+        # bricks (set_mesh): the devices the bricks are placed on, the
+        # decomposition, and the per-brick pool capacity of the
+        # partitioned state (positions are brick-local while it is set)
+        self.mesh: Optional[List[torch.device]] = None
+        self.brick_spec = None
+        self.local_cap: Optional[int] = None
+        self._dist_local_cap: Optional[int] = None
+        self._balance_cuts = None
+        self._mesh_axis_dim = 0
+        self._mesh_shape = None
+        self._mesh_axes = None
+        # user overrides of the measured ghost / migrant capacities (the
+        # remedy the brick overflow message names)
+        self.dist_ghost_cap: Optional[int] = None
+        self.dist_migrate_cap: Optional[int] = None
 
     # ------------------------------------------------------------ fix hooks
 
@@ -222,11 +234,71 @@ class Simulation:
         self.add_end_of_step_hook("phase_change",
                                   make_end_of_step_hook(config, self.spec))
 
-    def set_mesh(self, *args, **kwargs):
-        raise NotImplementedError(f"set_mesh: {_BRICKS_MODULE}")
+    def set_mesh(self, ndev: Optional[int] = None, axis_dim: int = 0,
+                 devices=None, shape=None, axes=None):
+        """Decompose the run into ``ndev`` bricks (the ``processors``
+        command; ``tpusph``'s ``set_mesh``). Call before the first run. The
+        bricks go round-robin over ``devices``, by default the simulation's
+        devices: every CUDA device where the simulation is on the card
+        (all four bricks on ``cuda:0`` on one card), else its own device.
+        Default: 1D bricks along ``axis_dim``, or an auto-chosen multi-axis
+        procgrid where those would be thinner than the halo margin; pass
+        ``shape`` (e.g. (4, 2)) and ``axes`` (e.g. (0, 1)) to force one."""
+        if devices is None:
+            if self.device.type == "cuda":
+                devices = [torch.device("cuda", i)
+                           for i in range(torch.cuda.device_count())]
+            else:
+                devices = [self.device]
+        devices = [torch.device(d) for d in devices]
+        if ndev is None:
+            ndev = len(devices)
+        self._pull_state()
+        self.mesh = [devices[b % len(devices)] for b in range(ndev)]
+        self._mesh_axis_dim = axis_dim
+        self._balance_cuts = None
+        self._mesh_shape = tuple(shape) if shape is not None else None
+        self._mesh_axes = tuple(axes) if axes is not None else None
+        self.brick_spec = None
+        self._runner = None
+        self._runner_key = None
+        self.state = None
+        self.aux = None
+        self.local_cap = None
+
+    def _make_brick_spec(self, cuts=None):
+        from tpusph_torch import dist
+        cutoff = self.tables.max_cut()
+        return dist.make_brick_spec(
+            self.box, len(self.mesh), cutoff, self._skin(cutoff),
+            self.natoms, axis_dim=self._mesh_axis_dim,
+            shape=self._mesh_shape, axes=self._mesh_axes,
+            ghost_cap=self.dist_ghost_cap,
+            migrate_cap=self.dist_migrate_cap, cuts=cuts)
 
     def balance(self):
-        raise NotImplementedError(f"balance: {_BRICKS_MODULE}")
+        """Rebalance the bricks to the current particle distribution (the
+        ``balance`` command, balance.cpp's shift balancer): per-axis brick
+        boundaries at the particle-count quantiles, clamped to the halo
+        margin; the bricks are repartitioned at the next run. Returns the
+        cuts; no-op (None) without bricks."""
+        if self.mesh is None:
+            return None
+        from tpusph_torch import dist
+        self._pull_state()
+        if self.brick_spec is None:
+            # the axes and shape, so the quantiles know the procgrid
+            self.brick_spec = self._make_brick_spec()
+        spec = self.brick_spec
+        self._balance_cuts = dist.compute_balance_cuts(
+            np.asarray(self._staged["x"]), self.box, spec.axes, spec.shape,
+            spec.margin)
+        self._runner = None
+        self._runner_key = None
+        self.state = None
+        self.aux = None
+        self.local_cap = None
+        return self._balance_cuts
 
     # ------------------------------------------------------------------ setup
 
@@ -369,6 +441,18 @@ class Simulation:
             e=s["e"], cv=s["cv"], tag=s["tag"], mobile=s["mobile"],
             capacity=_round_up(n + self.capacity_pad, 128),
             device=self.device, **extras)
+        self.local_cap = None   # one pool: positions are global
+
+    def _host_x(self, dev: dict) -> np.ndarray:
+        """Positions of a host copy of the state in GLOBAL coordinates:
+        while the state is partitioned into bricks they are brick-local
+        along the decomposed axes. Every host consumer of positions (get,
+        dumps, restarts, _pull_state) goes through here."""
+        x = dev["x"]
+        if self.brick_spec is not None and self.local_cap is not None:
+            from tpusph_torch.dist import globalize_positions
+            x = globalize_positions(x, self.brick_spec, self.local_cap)
+        return x
 
     def _pull_state(self):
         """Sync the device state back into the staged host arrays (staged
@@ -377,6 +461,7 @@ class Simulation:
         if self.state is None or not self._staged:
             return
         dev = state_to_numpy(self.state)
+        dev["x"] = self._host_x(dev)
         alive = (dev["type"] > 0) & dev["owned"]
         idx = np.nonzero(alive)[0]
         tags = dev["tag"][idx]
@@ -412,11 +497,11 @@ class Simulation:
             name = "dense" if self.natoms <= DENSE_MAX else "strip"
         if name == "dense":
             return self._select_dense_backend()
+        if name not in ("strip", "band", "pallas", "cellgrid"):
+            raise ValueError(f"unknown backend {name!r}")
         if self.tables.ntypes > 6:
-            raise NotImplementedError(
-                f"{self.tables.ntypes} particle types: the strip, band and "
-                "column kernels take at most 6; more go to "
-                f"{_CELLGRID_MODULE}")
+            # the strip, band and column kernels take at most 6 types
+            name = "cellgrid"
         if name == "strip":
             backend = self._select_strip_backend()
             if backend is not None:
@@ -428,11 +513,7 @@ class Simulation:
             if backend is not None:
                 return backend
             name = "pallas"
-        if name == "pallas":
-            return self._select_pallas_backend()
-        if name == "cellgrid":
-            raise NotImplementedError(f"backend {name!r}: {_CELLGRID_MODULE}")
-        raise ValueError(f"unknown backend {name!r}")
+        return self._select_cell_backend(name)
 
     def _select_dense_backend(self) -> DenseBackend:
         key = ("dense", id(self.box))
@@ -519,8 +600,9 @@ class Simulation:
             self.aux = None
         return self._backend_cache["backend"]
 
-    def _select_pallas_backend(self) -> PallasBackend:
-        """The column kernel's backend on the cell grid. Its capacity is
+    def _select_cell_backend(self, name: str):
+        """The column kernel's backend (``name`` "pallas") or the cell
+        grid's plain sweeps ("cellgrid") on the cell grid. Its capacity is
         ``cell_cap`` or the measured occupancy, measured once per (cutoff,
         skin, particle-count growth bucket): a phase-change firing does not
         re-measure, and the overflow re-choice covers occupancy that
@@ -537,11 +619,17 @@ class Simulation:
             cap = self._mcap
         geom = gridlib.make_geometry(self.box, cutoff, self.spec.dim,
                                      skin=skin, cap=cap)
-        key = ("pallas", geom, self.reneigh_every)
+        key = (name, geom, self.reneigh_every)
         if self._backend_cache.get("key") != key:
-            self._backend_cache = dict(key=key, backend=PallasBackend(
-                geom, self.box, ntypes=self.tables.ntypes,
-                rebuild_every=self.reneigh_every, device=self.device))
+            if name == "pallas":
+                backend = PallasBackend(
+                    geom, self.box, ntypes=self.tables.ntypes,
+                    rebuild_every=self.reneigh_every, device=self.device)
+            else:
+                backend = CellGridBackend(
+                    geom, rebuild_every=self.reneigh_every,
+                    device=self.device, box=self.box)
+            self._backend_cache = dict(key=key, backend=backend)
             self.aux = None
         return self._backend_cache["backend"]
 
@@ -549,12 +637,13 @@ class Simulation:
         return self.neighbor_skin if self.neighbor_skin is not None \
             else 0.3 * cutoff
 
-    def _measured_cell_cap(self, cutoff: float, skin: float) -> int:
+    def _measured_cell_cap(self, cutoff: float, skin: float,
+                           frac: Optional[float] = None) -> int:
         """Cell capacity from the measured occupancy of the current
         configuration (``tpusph``'s ``_measured_cell_cap``): the fullest
-        cell x 1.15 (x 1.6 under phase change, which inserts particles) x
-        the overflow boost, + 2, 8-aligned. The overflow guard raises if
-        the dynamics outgrow it."""
+        cell x 1.15 (x 1.6 under phase change, which inserts particles, or
+        ``frac``) x the overflow boost, + 2, 8-aligned. The overflow guard
+        raises if the dynamics outgrow it."""
         if self.state is not None:
             self._pull_state()
         x = np.asarray(self._staged["x"])
@@ -568,7 +657,8 @@ class Simulation:
         c = np.clip(((x - lo) // size).astype(int), 0, nc - 1)
         flat = (c[:, 0] * nc[1] + c[:, 1]) * nc[2] + c[:, 2]
         max_occ = int(np.bincount(flat).max()) if len(flat) else 8
-        frac = 1.6 if self.phase_change_config else 1.15
+        if frac is None:
+            frac = 1.6 if self.phase_change_config else 1.15
         frac *= self._cap_boost
         return int(math.ceil((max_occ * frac + 2) / 8.0) * 8)
 
@@ -596,8 +686,10 @@ class Simulation:
         self.spec = dataclasses.replace(spec, scalar_tables=tuple(sorted(
             scalar)), shared_wfd=bool(shared))
 
-    def _ensure_runner(self) -> Runner:
+    def _ensure_runner(self):
         self._derive_perf_flags()
+        if self.mesh is not None:
+            return self._ensure_dist_runner()
         backend = self._select_backend()
         key = (self.spec, self.box.periodic, id(backend),
                self.end_of_step_hook)
@@ -606,6 +698,83 @@ class Simulation:
                                   end_of_step=self.end_of_step_hook)
             self._runner_key = key
         return self._runner
+
+    def _ensure_dist_runner(self):
+        """The runner over the bricks (``tpusph``'s ``_ensure_dist_runner``):
+        the decomposition, then the inner backend of every brick. Inner
+        ladder: the strip where a geometry shared by every brick fits (on
+        the card, or where ``backend_name`` is "strip" or "pallas"), else
+        the column kernel on the card (or where named "pallas"), else the
+        cell grid's sweeps; a brick on the card that cannot strip says so
+        and takes the column kernel."""
+        from tpusph_torch import dist
+        key = (self.spec, self.box.periodic, tuple(self.mesh),
+               self.end_of_step_hook)
+        if self._runner is not None and self._runner_key == key:
+            return self._runner
+        if self.state is not None:
+            # to the host under the brick spec the state was partitioned
+            # with, before it is rebuilt below
+            self._pull_state()
+            self.state = None
+        self.local_cap = None
+        cutoff = self.tables.max_cut()
+        skin = self._skin(cutoff)
+        self.brick_spec = self._make_brick_spec(cuts=self._balance_cuts)
+        on_card = self.device.type == "cuda"
+        want_kernels = on_card or self.backend_name in ("strip", "pallas")
+        strip_geom = None
+        self._dist_local_cap = None
+        if (self.backend_name in ("auto", "strip") and want_kernels
+                and self.tables.ntypes <= 6):
+            strip_geom, self._dist_local_cap = \
+                dist.choose_strip_geometry_dist(
+                    self.box, self.brick_spec, self.spec.dim, cutoff, skin,
+                    np.asarray(self._staged["x"]),
+                    headroom=(1.35 if self.phase_change_config is not None
+                              else 1.15),
+                    drift=self._strip_drift, extra_rows=self._strip_extra)
+            if strip_geom is None:
+                if self._strip_extra != (0, 0) or self._strip_drift > 1.0:
+                    # the abandonment-retry contract of one device
+                    self._strip_abandoned = True
+                    warnings.warn(
+                        "brick strip geometry abandoned under escalated "
+                        "margin floors; falling back (will retry after the "
+                        "transient)", RuntimeWarning, stacklevel=2)
+                else:
+                    warnings.warn(
+                        "a brick's local box cannot strip: the bricks take "
+                        + ("the column kernel" if on_card
+                           else "the cell grid"), RuntimeWarning,
+                        stacklevel=2)
+        use_pallas = self.tables.ntypes <= 6 and (
+            self.backend_name == "pallas"
+            or (on_card and self.backend_name in ("auto", "strip")))
+        # the measured cell cap with headroom for ghost and migrant churn
+        # at the brick edges
+        cap = self.cell_cap
+        if cap is None and strip_geom is None:
+            cap = max(self._measured_cell_cap(cutoff, skin, frac=1.6), 16)
+        backend = dist.DistBackend(
+            self.brick_spec, self.box, self.spec.dim, cutoff, skin, cap=cap,
+            rebuild_every=self.reneigh_every, use_pallas=use_pallas,
+            ntypes=self.tables.ntypes, strip_geom=strip_geom,
+            devices=self.mesh)
+        self._runner = dist.DistRunner(self.spec, backend,
+                                       end_of_step=self.end_of_step_hook)
+        self._runner_key = key
+        self.state = None       # repartition
+        self.aux = None
+        return self._runner
+
+    def _current_strip_geom(self):
+        """The strip geometry in use: one device's, or the one every brick
+        shares (kept on the brick backend)."""
+        if self._strip_geom is not None or self.mesh is None:
+            return self._strip_geom
+        return getattr(getattr(self._runner, "backend", None), "strip_geom",
+                       None)
 
     def _thermo_values(self, state: ParticleState, istep: int):
         sc = thermo_scalars(state)
@@ -691,8 +860,9 @@ class Simulation:
                 self._strip_violations += 1
                 short = self._margin_short
                 if short[0] > 0 or short[1] > 0:
-                    g = self._strip_geom
-                    base = (g.mlo * g.ch, g.mhi * g.ch)
+                    g = self._current_strip_geom()
+                    base = ((g.mlo * g.ch, g.mhi * g.ch) if g is not None
+                            else (0, 0))
                     prev = self._strip_extra
                     self._strip_extra = (
                         max(prev[0], base[0] + short[0] + 4),
@@ -758,7 +928,7 @@ class Simulation:
         parity with the reference; a same-W re-choice blocks further
         attempts until the next violation episode). Off the strip, the
         retry observer watches instead."""
-        g = self._strip_geom
+        g = self._current_strip_geom()
         aux = self.aux
         if g is None or not hasattr(aux, "margin_need"):
             self._maybe_retry_strip(aux)
@@ -773,7 +943,9 @@ class Simulation:
         last, self._decay_nbuilds = self._decay_nbuilds, nb
         if last is not None and nb <= last:
             return  # no rebuild since the last observation
-        nlo, nhi = (int(v) for v in aux.margin_need.cpu())
+        # the worst brick's need (one device: its one row)
+        nlo, nhi = (int(v) for v in
+                    aux.margin_need.reshape(-1, 2).amax(dim=0).cpu())
         if nlo > -g.ch or nhi > -g.ch:
             # tight fit (or a violation pending): restart the streak
             self._decay_obs = 0
@@ -859,17 +1031,27 @@ class Simulation:
     def _run_once(self, nsteps: int, pre: bool = True):
         runner = self._ensure_runner()
         if self.state is None:
-            self._build_state()
+            if self.mesh is not None:
+                from tpusph_torch import dist
+                bricks, self.local_cap = dist.partition_state(
+                    self._staged, self.brick_spec, self.mesh,
+                    local_cap=self._dist_local_cap)
+                self.state = runner.backend.concat(bricks)
+            else:
+                self._build_state()
             self.aux = None
         if self.aux is None:
-            # initial sort and build (Verlet::setup's Neighbor::build)
+            # initial sort and build (Verlet::setup's Neighbor::build; in
+            # bricks also the exchange and borders)
             self.state, self.aux = runner.backend.init_aux(self.state,
                                                            self.box)
-            if not pre:
+            if not pre and self.mesh is None:
                 self._restore_integrator_fields()
         tabs = self.tables.stacked(self.device)
         tw = self._ensure_thermo() if self.thermo_every or nsteps else None
-        if pre:
+        # bricks always run Verlet::setup's force stage (it also fills the
+        # ghosts' rho and colour gradient), as the reference does
+        if pre or self.mesh is not None:
             self.state = runner.setup(self.state, tabs, self.step_count,
                                       self.aux)
         # the output scheduler (src/output.cpp): thermo, each dump and the
@@ -922,7 +1104,8 @@ class Simulation:
         loop_time = runner.loop_time - t0
         if summary:
             tw.write_loop_summary(
-                loop_time, 1, nsteps, self.natoms,
+                loop_time, len(self.mesh) if self.mesh else 1, nsteps,
+                self.natoms,
                 breakdown=self._timer_breakdown(runner, loop_time,
                                                 output_time[0]))
         self.time_acc += nsteps * self.dt
@@ -942,7 +1125,10 @@ class Simulation:
         phases = runner.phase_times if self.timer_detail else None
         total = sum(phases.values()) if phases else 0.0
         if total > 0.0:
-            for name in ("Pair", "Neigh", "Modify"):
+            # Comm: the bricks' per-step forward comm
+            names = ("Pair", "Neigh", "Modify") + (
+                ("Comm",) if "Comm" in phases else ())
+            for name in names:
                 breakdown[name] = rest * phases.get(name, 0.0) / total
         else:
             breakdown["Pair"] = rest
@@ -963,6 +1149,7 @@ class Simulation:
         self._strip_geom_key = None
         self._band_geom_key = None
         self._mcap_key = None
+        self.local_cap = None
 
     def _check_overflow(self):
         """Fixed-capacity overflow guard: dropped rows or an uncovered
@@ -973,11 +1160,16 @@ class Simulation:
         if ov > 0:
             ms = getattr(self.aux, "margin_short", None)
             if ms is not None:
-                ms = ms.cpu().numpy()
+                # the worst brick's shortfall (one device: its one row)
+                ms = ms.reshape(-1, 2).amax(dim=0).cpu().numpy()
                 self._margin_short = (int(ms[0]), int(ms[1]))
+            remedy = (" Raise Simulation.cell_cap, or the bricks' "
+                      "dist_ghost_cap / dist_migrate_cap, and rerun."
+                      if self.mesh is not None else "")
             raise CapacityOverflow(
-                f"capacity overflow ({ov} rows dropped from pair windows "
-                "or coverage violations)")
+                f"capacity overflow ({ov} rows dropped from pair windows, "
+                "halo or migration buffers, or coverage violations)."
+                + remedy)
 
     # ------------------------------------------------------------- accessors
 
@@ -991,6 +1183,8 @@ class Simulation:
         order = np.argsort(dev["tag"][alive], kind="stable")
         if field == "t":
             arr = dev["e"] / np.where(dev["cv"] > 0, dev["cv"], 1.0)
+        elif field == "x":
+            arr = self._host_x(dev)
         else:
             arr = dev[field]
         return np.asarray(arr)[alive][order]
@@ -999,7 +1193,7 @@ class Simulation:
     def rebuilds(self) -> int:
         """Rebuilds (strip, band or cell-grid builds) over the simulation's
         life, re-chosen geometries included (each layout's aux counts its
-        own from 1)."""
+        own from 1; the bricks rebuild together and count once)."""
         own = int(self.aux.nbuilds.sum()) if self.aux is not None else 0
         return self._rebuilds_before + own
 

@@ -277,7 +277,8 @@ def run_bench(n_particles: int = 1_000_000, n_steps: int = 50, dim: int = 3,
         "geometry_rechoices": rechoices(),
         "geometry_decays": sim._strip_decays,
         "warmup_windows": warmup_windows,
-        "strip_w": sim._strip_geom.w if sim._strip_geom else None,
+        # one device's strip, or the one every brick shares
+        "strip_w": getattr(sim._current_strip_geom(), "w", None),
         "cell_cap": (backend_obj.geom.cap
                      if isinstance(backend_obj, PallasBackend) else None),
         # the band geometry the timed windows ran on (the strip subclasses

@@ -6,8 +6,8 @@ Reference parity: src/main.cpp + the lammps.cpp CLI switches -in, -var,
 -log, -screen, -echo (SURVEY.md §5.6). Runs on the card (``--device
 cuda``, the default; it raises where there is no CUDA device, with no
 fallback) unless ``--device cpu`` asks for the CPU. ``--profile`` traces
-the run with ``torch.profiler``. ``--mesh`` raises: bricks are not ported
-(ROADMAP Queue 1 item 6).
+the run with ``torch.profiler``. ``--mesh N`` runs the script in N bricks
+(``Simulation.set_mesh``; on one card every brick is on it).
 """
 
 from __future__ import annotations
@@ -45,7 +45,8 @@ def main(argv=None):
     run_p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                        help="the torch device (default: the card)")
     run_p.add_argument("--mesh", type=int, default=0,
-                       help="decompose over N devices (not ported: raises)")
+                       help="decompose into N bricks (placed round-robin "
+                            "over the devices)")
     run_p.add_argument("--profile", default=None, metavar="DIR",
                        help="trace the run with torch.profiler into DIR "
                             "(a Chrome trace)")

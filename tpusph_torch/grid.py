@@ -148,11 +148,15 @@ def flat_cell_id(coords: torch.Tensor, geom: GridGeometry) -> torch.Tensor:
     return (coords[..., 0] * ncy + coords[..., 1]) * ncz + coords[..., 2]
 
 
-def build(state: ParticleState, geom: GridGeometry,
+def build(state: ParticleState, geom: GridGeometry, extra=None,
           nbuilds: torch.Tensor | None = None):
     """Sort particles by cell id (stable) and build the cell index
     (Neighbor::build + the atom sort). Dead rows take the sentinel cell
-    (= total_cells) and sort to the end. Returns (state, CellGridData)."""
+    (= total_cells) and sort to the end. Returns (state, CellGridData).
+
+    ``extra``: a dict of tensors with a leading (N,) row axis, permuted as
+    the rows are (the bricks carry their halo markers through the sort
+    with it); then returns (state, CellGridData, extra permuted)."""
     n = state.capacity
     dev = state.device
     ncells = geom.total_cells
@@ -160,6 +164,8 @@ def build(state: ParticleState, geom: GridGeometry,
     cid = torch.where(state.alive, cid, ncells)
     cid, perm = torch.sort(cid, stable=True)
     state = state.permute(perm)
+    if extra is not None:
+        extra = {k: v[perm] for k, v in extra.items()}
     counts = torch.zeros(ncells + 1, dtype=torch.int64, device=dev
                          ).index_add_(0, cid, torch.ones_like(cid))[:ncells]
     starts = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
@@ -170,9 +176,12 @@ def build(state: ParticleState, geom: GridGeometry,
     overflow = torch.clamp(counts - geom.cap, min=0).sum().reshape(1)
     if nbuilds is None:
         nbuilds = torch.zeros(1, dtype=torch.int64, device=dev)
-    return state, CellGridData(cell_id=cid, starts=starts, counts=counts,
-                               rank=rank, x_ref=state.x, overflow=overflow,
-                               nbuilds=nbuilds + 1)
+    data = CellGridData(cell_id=cid, starts=starts, counts=counts,
+                        rank=rank, x_ref=state.x, overflow=overflow,
+                        nbuilds=nbuilds + 1)
+    if extra is not None:
+        return state, data, extra
+    return state, data
 
 
 def needs_rebuild(state: ParticleState, x_ref: torch.Tensor,

@@ -43,10 +43,10 @@ class Dump:
         self._last_step = istep
         self.write(sim, state, istep)
 
-    def _column_data(self, dev, order, box):
+    def _column_data(self, sim, dev, order, box):
         lo = box.lo.cpu().numpy()
         length = box.hi.cpu().numpy() - lo
-        x = dev["x"][order]
+        x = sim._host_x(dev)[order]
         cols = {}
         for c in self.columns:
             if c == "id":
@@ -113,7 +113,7 @@ class Dump:
         box = sim.box
         if self.style == "xyz":
             # dump_xyz.cpp format: natoms, comment, then "type x y z" rows
-            x = dev["x"][order]
+            x = sim._host_x(dev)[order]
             t = dev["type"][order]
             f.write(f"{len(order)}\n")
             f.write(f"Atoms. Timestep: {istep}\n")
@@ -133,7 +133,7 @@ class Dump:
             else ["id", "type", "xs", "ys", "zs"]
         self.columns = cols
         f.write("ITEM: ATOMS %s\n" % " ".join(cols))
-        data = self._column_data(dev, order, box)
+        data = self._column_data(sim, dev, order, box)
         mat = np.column_stack([data[c] for c in cols]).astype(np.float32)
         ints = [i for i, c in enumerate(cols) if c in ("id", "type")]
         from tpusph_torch import native

@@ -40,6 +40,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tpusph_torch.forces import drive_stage
 from tpusph_torch.grid import BandData, needs_rebuild
 from tpusph_torch.ops import cuda_build
 from tpusph_torch.ops import tile_physics
@@ -727,11 +728,16 @@ class BandBackend:
         """One sweep's (8, n_slots) output matrix."""
         return KERNELS[sweep](fld, tabs, self.geom, spec)
 
-    def force_fields(self, state: ParticleState, tabs, spec: PhysicsSpec,
-                     aux, istep: int):
-        """The force sweep's inputs: rho sweep -> rho patch -> cgrad sweep
-        -> cg patch. Returns (fld, rho): the field matrix the force sweep
-        reads and the density the step keeps."""
+    def force_fields_steps(self, state: ParticleState, tabs,
+                           spec: PhysicsSpec, aux, istep: int,
+                           halo_points: bool = False):
+        """The force sweep's inputs as a generator: rho sweep -> rho patch
+        -> cgrad sweep -> cg patch. With ``halo_points`` it yields the
+        fresh rho (n,) (every step of a rhosum run, as the reference
+        refreshes it) and colour gradient (n, 3) and patches in the fields
+        it is sent back (``forces.drive_stage``). Returns (fld, rho): the
+        field matrix the force sweep reads and the density the step
+        keeps."""
         alive = state.alive
         fld = pack_fields(state, aux.mix if spec.surface_tension else None)
         rho = state.rho
@@ -742,19 +748,36 @@ class BandBackend:
                 total = total * state.rmass
             if istep % spec.rhosum_every == 0:
                 rho = torch.where(alive, total, rho)
+            if halo_points:
+                rho = yield rho
             fld[RRHO] = rho
         if spec.surface_tension:
             out = self._sweep("cgrad", fld, tabs, spec, aux)
-            cg = torch.stack([out[OCGX], out[OCGY], out[ODE]])
-            fld[RCGX:RCGZ + 1] = torch.where(alive, cg, 0.0)
+            cg = torch.where(alive, torch.stack([out[OCGX], out[OCGY],
+                                                 out[ODE]]), 0.0)
+            if halo_points:
+                cg = (yield cg.T).T
+            fld[RCGX:RCGZ + 1] = cg
         return fld, rho
 
-    def force_stage(self, state: ParticleState, tabs, spec: PhysicsSpec,
-                    aux, istep: int) -> ParticleState:
-        """``force_fields`` -> force sweep -> gravity. ``tabs`` is
-        ``PairTables.stacked``'s device tables."""
+    def force_fields(self, state: ParticleState, tabs, spec: PhysicsSpec,
+                     aux, istep: int, halo=None):
+        """``force_fields_steps`` run to its end; ``halo``: a field ->
+        field callable applied to the fresh rho and colour gradient before
+        they are patched in (the bricks' mid-force owner -> ghost refresh,
+        ``tpusph``'s ``force_stage(..., halo=)``)."""
+        return drive_stage(self.force_fields_steps(
+            state, tabs, spec, aux, istep, halo_points=halo is not None),
+            halo)
+
+    def force_stage_steps(self, state: ParticleState, tabs,
+                          spec: PhysicsSpec, aux, istep: int,
+                          halo_points: bool = False):
+        """``force_fields_steps`` -> force sweep -> gravity, as a
+        generator (see ``force_fields_steps``)."""
         alive = state.alive
-        fld, rho = self.force_fields(state, tabs, spec, aux, istep)
+        fld, rho = yield from self.force_fields_steps(
+            state, tabs, spec, aux, istep, halo_points)
         out = self._sweep("force", fld, tabs, spec, aux)
         upd = dict(
             rho=rho,
@@ -768,3 +791,12 @@ class BandBackend:
             upd["f"] = upd["f"] + torch.where(
                 gmask, state.rmass[:, None] * tabs.gravity[None, :], 0.0)
         return dataclasses.replace(state, **upd)
+
+    def force_stage(self, state: ParticleState, tabs, spec: PhysicsSpec,
+                    aux, istep: int, halo=None) -> ParticleState:
+        """``force_fields`` -> force sweep -> gravity. ``tabs`` is
+        ``PairTables.stacked``'s device tables; ``halo`` as in
+        ``force_fields``."""
+        return drive_stage(self.force_stage_steps(
+            state, tabs, spec, aux, istep, halo_points=halo is not None),
+            halo)

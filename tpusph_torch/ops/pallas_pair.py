@@ -27,6 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tpusph_torch.forces import drive_stage
 from tpusph_torch.grid import CellGridData, GridGeometry
 from tpusph_torch.ops import cuda_build
 from tpusph_torch.ops.band_pair import (
@@ -100,6 +101,17 @@ def pack_dense(state: ParticleState, data: CellGridData, cg: ColumnGrid):
                       device=state.device)
     fld[:, flat_pos] = torch.where(ok, pack_fields(state), 0.0)
     return fld[:, :n].contiguous(), flat_pos, ok
+
+
+def _patch_rows(fld: torch.Tensor, rows, flat_pos: torch.Tensor,
+                vals: torch.Tensor):
+    """fld[rows[r], slot of each sorted row] = vals[r]; rows without a slot
+    (flat_pos = n_slots) are dropped."""
+    n = fld.shape[1]
+    for r, v in zip(rows, vals):
+        ext = torch.cat([fld[r], fld.new_zeros(1)])
+        ext[flat_pos] = v
+        fld[r] = ext[:n]
 
 
 def unpack_dense(out: torch.Tensor, flat_pos: torch.Tensor, ok, rows):
@@ -281,14 +293,21 @@ class PallasBackend:
                        cut: float, aux: CellGridData):
         return self._cells.vapor_neighbor(state, box, vtype, cut, aux)
 
-    def force_stage(self, state: ParticleState, tabs: DeviceTables,
-                    spec: PhysicsSpec, aux: CellGridData,
-                    istep: int) -> ParticleState:
+    def force_stage_steps(self, state: ParticleState, tabs: DeviceTables,
+                          spec: PhysicsSpec, aux: CellGridData, istep: int,
+                          halo_points: bool = False):
         """One pack, then rho sweep -> rho patch -> cgrad sweep -> cg patch
         -> force sweep on the field matrix, the outputs gathered back to
         the sorted rows, then gravity (``tpusph``'s
         ``PallasBackend.force_stage``). The rho sweep folds the self term
-        in, where the reference adds it per type after the kernel."""
+        in, where the reference adds it per type after the kernel.
+
+        A generator (``forces.drive_stage``): with ``halo_points`` it
+        yields the fresh rho (n,) of the sorted rows (every step of a
+        rhosum run) and their colour gradient (n, 3), and patches the
+        fields it is sent back into the field matrix before the next sweep
+        (the reference's bricks run its per-sweep methods with a halo
+        refresh between them)."""
         cg = self.colgrid
         alive = state.alive
         fld, flat_pos, ok = pack_dense(state, aux, cg)
@@ -301,9 +320,17 @@ class PallasBackend:
                 fld[RRHO] = torch.where(fld[RTYPE] > 0.5, total, fld[RRHO])
                 (new,) = unpack_dense(fld, flat_pos, ok, (RRHO,))
                 rho = torch.where(ok, new, state.rho)
+            if halo_points:
+                rho = yield rho
+                _patch_rows(fld, (RRHO,), flat_pos, rho[None, :])
         if spec.surface_tension:
             out = column_cgrad(fld, tabs, cg, spec)
             fld[RCGX:RCGZ + 1] = out[[OCGX, OCGY, ODE]]
+            if halo_points:
+                cgr = torch.stack(unpack_dense(out, flat_pos, ok,
+                                               (OCGX, OCGY, ODE)), 1)
+                cgr = yield cgr
+                _patch_rows(fld, (RCGX, RCGX + 1, RCGZ), flat_pos, cgr.T)
         out = column_force(fld, tabs, cg, spec)
         rows = (OFX, OFY, OFZ, ODRHO, ODE) + ((OVIR,) if spec.virial
                                                   else ())
@@ -320,3 +347,14 @@ class PallasBackend:
             upd["f"] = upd["f"] + torch.where(
                 gmask, state.rmass[:, None] * tabs.gravity[None, :], 0.0)
         return dataclasses.replace(state, **upd)
+
+    def force_stage(self, state: ParticleState, tabs: DeviceTables,
+                    spec: PhysicsSpec, aux: CellGridData, istep: int,
+                    halo=None) -> ParticleState:
+        """``force_stage_steps`` run to its end; ``halo``: a field ->
+        field callable applied to the fresh rho and colour gradient before
+        the next sweep reads them (the bricks' mid-force owner -> ghost
+        refresh)."""
+        return drive_stage(self.force_stage_steps(
+            state, tabs, spec, aux, istep, halo_points=halo is not None),
+            halo)

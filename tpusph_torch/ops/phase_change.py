@@ -266,7 +266,13 @@ def _apply_phase_change(state: ParticleState, istep: int,
         offset = torch.where(((vcount > 0) & (nrm[:, 0] > 1e-12))[:, None],
                              dir_v, offset)
     new_x = state.x + config.insert_offset * offset
-    max_tag = torch.where(state.alive, state.tag, 0).max()
+    if getattr(backend, "is_dist", False):
+        # inside a brick: the global largest tag strided by the brick
+        # index times the pool capacity keeps minted tags unique across
+        # bricks (bounds a brick's insertions per firing by its pool)
+        max_tag = backend.tag_base(n)
+    else:
+        max_tag = torch.where(state.alive, state.tag, 0).max()
     new_tag = (max_tag + 1 + sel_rank).to(torch.int32)
 
     def full(val, dtype=torch.float32):

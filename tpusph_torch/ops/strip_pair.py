@@ -161,13 +161,15 @@ def choose_strip_geometry(box: Box, cutoff: float, dim: int, skin: float,
                           x: np.ndarray | None = None,
                           headroom: float = 1.08,
                           candidates=DEFAULT_TS_CH,
+                          plane_nc=None,
                           drift: float = 1.0,
                           extra_rows: tuple = (0, 0)) -> StripGeometry | None:
     """Host-side geometry choice from the MEASURED particle distribution —
     ``tpusph.ops.strip_pair.choose_strip_geometry`` line for line (see its
-    docstring for ``drift`` and ``extra_rows``), less the environment knobs
-    and the forced-column-count (dist) path. Returns None when the box
-    cannot strip."""
+    docstring for ``drift`` and ``extra_rows``), less the environment
+    knobs. ``plane_nc`` forces the plane column counts (the bricks: every
+    brick runs one layout, so the lead brick's choice binds them all).
+    Returns None when the box cannot strip."""
     if x is None or len(x) == 0:
         return None
     lo = np.asarray(box.lo.cpu(), np.float64)
@@ -333,15 +335,19 @@ def choose_strip_geometry(box: Box, cutoff: float, dim: int, skin: float,
                 worst = max(worst, float(pair.max()))
         return worst
 
-    lo_nc = {a: max(int(math.ceil(nc0[a] * 0.6)), 1) for a in plane_axes}
-    opts = []
-    for k in range(nc0[plane_axes[0]] - lo_nc[plane_axes[0]] + 1):
-        nc = {a: max(nc0[a] - k, 1) for a in plane_axes}
-        opts.append((proxy(nc), k, nc))
-    opts.sort(key=lambda t: (t[0], t[1]))
-    nc_list = [t[2] for t in opts[:4]]
-    if nc0 not in nc_list:
-        nc_list.append(dict(nc0))
+    if plane_nc is not None:
+        nc_list = [{a: int(v) for a, v in zip(plane_axes, plane_nc)}]
+    else:
+        lo_nc = {a: max(int(math.ceil(nc0[a] * 0.6)), 1)
+                 for a in plane_axes}
+        opts = []
+        for k in range(nc0[plane_axes[0]] - lo_nc[plane_axes[0]] + 1):
+            nc = {a: max(nc0[a] - k, 1) for a in plane_axes}
+            opts.append((proxy(nc), k, nc))
+        opts.sort(key=lambda t: (t[0], t[1]))
+        nc_list = [t[2] for t in opts[:4]]
+        if nc0 not in nc_list:
+            nc_list.append(dict(nc0))
     best = None
     seen_nc = set()
     for nc in nc_list:
@@ -501,14 +507,24 @@ def column_id(x: torch.Tensor, geom: StripGeometry):
 
 
 def build_strips(state: ParticleState, geom: StripGeometry, box: Box,
-                 nbuilds: torch.Tensor | None = None):
+                 nbuilds: torch.Tensor | None = None, extra=None,
+                 keep_ghosts: bool = False, return_seam: bool = False):
     """Sort owned particles into dense z-ordered columns (slot = col*cap +
     head + rank), write the seam-ghost bands, and build the window-retarget
     tables and the coverage check — ``tpusph.ops.strip_pair.build_strips``
     step for step. Positions wrap here (Domain::pbc). Overflows (a column
     fuller than its budget, a seam band fuller than its reserve, or a
     window that no longer covers cutoff+skin) are counted, never dropped
-    silently."""
+    silently.
+
+    For the bricks (``tpusph_torch.dist``): ``extra`` is a dict of (n,) /
+    (n, S) integer marker tensors carried to the rows' slots (the halo
+    bookkeeping; a seam-band slot carries the marker of the dead row the
+    placement sent there); ``keep_ghosts`` sorts halo ghosts (alive,
+    owned=False) in as regular rows instead of dropping them;
+    ``return_seam`` also returns the seam-band copy map (src, dest with n
+    = none, column-axis shift), which the bricks re-copy after every
+    owner -> ghost refresh. Returns (state, GridData[, extra][, seam])."""
     n = state.capacity
     if n != geom.n_slots:
         raise ValueError(f"state capacity {n} != layout slots "
@@ -520,7 +536,10 @@ def build_strips(state: ParticleState, geom: StripGeometry, box: Box,
     depth = geom.ghost_depth
 
     state = dataclasses.replace(state, x=box.wrap(state.x))
-    live = state.alive & state.owned
+    # earlier seam copies are dropped; with keep_ghosts the bricks have
+    # killed them (and their stale halo ghosts) already, and the fresh
+    # halo ghosts sort in as regular rows
+    live = state.alive if keep_ghosts else (state.alive & state.owned)
     col, z = column_id(state.x, geom)
     zq = torch.clamp((z * (float(1 << 20) / lz)).to(torch.int64),
                      max=(1 << 20) - 1)
@@ -575,6 +594,8 @@ def build_strips(state: ParticleState, geom: StripGeometry, box: Box,
         + [dead_lane_fill(RRHO), 0.0, dead_lane_fill(RCV),
            dead_lane_fill(RM), 0.0, 0.0], dtype=torch.float32, device=dev)
     fmat = torch.where(occ[:, None], fmat, dead_fill[None, :])
+    extra_out = None if extra is None else \
+        {k: v[src0] for k, v in extra.items()}
 
     empty_i = torch.zeros(0, dtype=torch.int64, device=dev)
     seam = (empty_i, empty_i, torch.zeros(0, dtype=torch.float32,
@@ -701,7 +722,12 @@ def build_strips(state: ParticleState, geom: StripGeometry, box: Box,
                     nbuilds=nbuilds + 1, delta=delta, seam_src=seam[0],
                     seam_dest=seam[1], seam_shift=seam[2],
                     margin_short=margin_short, margin_need=margin_need)
-    return new_state, data
+    ret = (new_state, data)
+    if extra is not None:
+        ret = ret + (extra_out,)
+    if return_seam:
+        ret = ret + (seam,)
+    return ret
 
 
 # --------------------------------------------------------------------------

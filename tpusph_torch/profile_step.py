@@ -3,6 +3,8 @@
     python -m tpusph_torch.profile_step --mode boiling [--backend pallas]
                                         [--particles N]
     python -m tpusph_torch.profile_step --mode dynamic --backend band
+    python -m tpusph_torch.profile_step --mode boiling --particles 2000000 \
+                                        --steps 20 --mesh 4
 
 Builds the bench (``tpusph_torch.bench``), warms it up as ``run_bench``
 does, then runs one window of ``--steps`` steps under ``torch.profiler``
@@ -12,7 +14,10 @@ all other device work, the device idle share (wall time not covered by
 device work), and the window's rebuilds and phase-change insertions.
 ``--backend`` is the simulation's ``backend_name`` (``auto``: the strip;
 ``band``: the band backend, for a run without phase change; ``pallas``:
-the column kernel on the cell grid). Needs a CUDA device.
+the column kernel on the cell grid); ``--mesh N`` runs the bench in N
+bricks on the card (``Simulation.set_mesh``). The line also carries the
+host ops that took the most host time in the window (``host_top``: self
+time by op, host waits on the device included). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -72,8 +77,10 @@ def _kernel_of(name: str) -> str | None:
 
 
 def profile_window(mode: str, n_particles: int, steps: int,
-                   backend: str = "auto") -> dict:
+                   backend: str = "auto", mesh: int = 0) -> dict:
     sim = build_bench_sim(n_particles, mode=mode, backend=backend)
+    if mesh:
+        sim.set_mesh(mesh)
     warm = run_bench(sim=sim, n_steps=steps, n_windows=1, mode=mode,
                      backend=backend)
     nb0 = sim.rebuilds
@@ -87,6 +94,9 @@ def profile_window(mode: str, n_particles: int, steps: int,
         wall = time.perf_counter() - t0
     kernels = {short: dict(launches=0, ms=0.0) for short in KERNEL_NAMES}
     other_ms = 0.0
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)[:15]
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
             continue  # host ops; their kernels are device events of their own
@@ -110,8 +120,10 @@ def profile_window(mode: str, n_particles: int, steps: int,
                 backend=warm["backend"], strip_w=warm["strip_w"],
                 cell_cap=warm["cell_cap"],
                 band_geometry=warm["band_geometry"],
-                warmup_psps=warm["value"], device_name=name,
-                power_limit=limit)
+                warmup_psps=warm["value"], mesh=mesh,
+                host_top=[(e.key, e.count, e.self_cpu_time_total / 1e3)
+                          for e in host],
+                device_name=name, power_limit=limit)
 
 
 def main() -> None:
@@ -122,11 +134,13 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--backend", default="auto",
                     choices=("auto", "band", "pallas"))
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="run in this many bricks on the card")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
     print(json.dumps(profile_window(args.mode, args.particles, args.steps,
-                                    args.backend)))
+                                    args.backend, args.mesh)))
 
 
 if __name__ == "__main__":

@@ -8,8 +8,9 @@ each handler drives the same ``tpusph_torch.api.Simulation`` the Python API
 exposes.
 
 Unknown commands raise; commands that exist in LAMMPS but have no meaning
-on one device (e.g. ``processors``) warn once and continue. ``balance``
-raises (bricks are not ported).
+here (e.g. ``processors``: the bricks come from ``Simulation.set_mesh``)
+warn once and continue. ``balance`` rebalances the bricks
+(``Simulation.balance``).
 """
 
 from __future__ import annotations
@@ -646,8 +647,10 @@ class Interpreter:
     # -- time / output ---------------------------------------------------------
 
     def cmd_balance(self, a):
-        """balance <thresh> shift ...: raises, as bricks are not ported
-        (``Simulation.balance``)."""
+        """balance <thresh> shift <dims> <niter> <stopthresh>: the cut
+        planes move to the particle-count quantiles whatever the iteration
+        knobs (one exact shift pass; balance.cpp converges to the same
+        planes). ``Simulation.balance``; no-op without bricks."""
         self.sim.balance()
 
     def cmd_timestep(self, a):
