@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
-"""Smoke test of the torch port (tpusph_torch) on one NVIDIA GPU.
+"""Smoke test of the torch port (tpusph_torch) on NVIDIA GPUs.
 
-    python3 chip_smoke.py            # the 1M-particle benches
+    python3 chip_smoke.py            # every phase; needs one card
+
+Phases 1-22 run on one card; phases 23 and 24 spread their bricks over
+every visible card (one brick per card on a node of four);
+`CUDA_VISIBLE_DEVICES=0` pins the whole script to one card.
 
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. device  — a CUDA device must exist; prints nvidia-smi's name and
@@ -160,32 +164,42 @@ Phases, each of which raises on failure (exit code != 0, no result line):
                rows bitwise unmoved, overflow 0, finite thermo, and its
                particle-steps/s over the second 20 steps.
  23. bricks  — the `dynamic` bench at 48^3 for 30 steps on one device (the
-               strip) and in 4 bricks on the one card (Simulation.set_mesh:
-               tpusph_torch.dist, every brick on cuda:0) with each inner —
+               strip) and in 4 bricks (Simulation.set_mesh: tpusph_torch.
+               dist, round-robin over every visible card; prints each
+               brick's device) with each inner —
                strip, column kernel, cell grid, and the strip on a 2 x 2
                procgrid (the corner relay): each held to the one-device
                run at tests/test_dist.py's bars (minimum-image x and v to
                5e-4, rho rtol 1e-4, 2e-4 for the column inner, e rtol 1e-4
                / atol 1e-5, the same tags and natoms), its inner, the
                kernels it launched and no other (no check kernel), overflow
-               0; then `python -m tpusph_torch.cli run <heat_slab> --mesh 4`
-               (cli.main on the card by default) at its golden settings:
-               the golden rows within phase 22's bar.
- 24. config 5 — BASELINE.json config 5, the bench's `boiling` at 2M
-               particles (the cube rounding decides the count: 126^3), on
-               one device (the strip) and with set_mesh(4) on the one card
+               0; where several cards are visible, the strip's 4 bricks
+               again all on cuda:0, and the across-cards run held to that
+               run at the same bars (largest differences printed; one card:
+               the same run, not repeated); then `python -m
+               tpusph_torch.cli run <heat_slab> --mesh 4` (cli.main on the
+               card by default) at its golden settings: the golden rows
+               within phase 22's bar.
+ 24. config 5 — BASELINE.json config 5, the bench's `boiling` at 4M
+               particles, its upper size (the cube rounding decides the
+               count: 159^3 = 4,019,679), on one device on the column
+               kernel (the strip chooser's SMEM reject, kept for parity,
+               refuses a 159^3 box; the one-device strip boiling path is
+               phase 10's) and with set_mesh(4) over every visible card
                (the strip in every brick), each one warmup that passes with
                no re-choice and ONE timed window of 20 steps (run_bench's
                three windows cut to one for the time limit): phase 10's
                ledgers, overflow 0, every tag owned once, the owned rows
                summing to natoms; prints each path's particle-steps/s, strip
-               W, rebuilds, re-choices, events, launches and run-end Timer
-               table, and the 4-brick over one-device rate (recorded, not
-               gated).
+               W, rebuilds, re-choices, events, launches (and per card),
+               run-end Timer table, the cards the bricks used, each card's
+               peak memory and the host chooser's time, and the rate of
+               the strip bricks over the one-device column kernel's
+               (recorded, not gated).
 Prints the five bench JSON lines, one JSON line each of the cases, the
 bricks and the config 5 phases, one JSON line of the kernels (launches
-on the boiling paths, config 5's brick path, the band path and the
-compacted sweep's two paths;
+on the boiling paths, config 5's brick path (and per card), the band path
+and the compacted sweep's two paths;
 times and bounds from phases 11, 15, 19 and 6, the largest error of all
 comparisons; for the strip colour-gradient and vapor kernels, the three
 column and the three band kernels and the compacted kernel also the
@@ -742,7 +756,15 @@ def owned_totals(sim):
 def reset_counts():
     from tpusph_torch.ops import all_kernels
     for k in all_kernels().values():
-        k.launches = 0
+        k.reset()
+
+
+def card_counts(names):
+    """The launch counts of the kernels ``names`` since the last reset, by
+    card index."""
+    from tpusph_torch.ops import all_kernels
+    kernels = all_kernels()
+    return {s: dict(sorted(kernels[s].by_card.items())) for s in names}
 
 
 def read_counts(names):
@@ -1389,71 +1411,112 @@ BRICK_INNERS = {"strip": "StripBackend", "pallas": "PallasBackend",
 
 
 def brick_run(n, steps, backend, nbricks=1, shape=None, axes=None,
-              device="cuda", mode="dynamic"):
+              device="cuda", mode="dynamic", devices=None):
     """The bench in ``mode`` at ``n`` particles for ``steps`` steps on one
-    device or in ``nbricks`` bricks (``Simulation.set_mesh``, every brick
-    on the one card), the launch counts reset just before the run;
-    returns (simulation, fields by tag, wall seconds)."""
-    from tpusph_torch.bench import _sync, build_bench_sim
+    device or in ``nbricks`` bricks (``Simulation.set_mesh``: over
+    ``devices``, by default every visible card), the launch counts reset
+    just before the run; returns (simulation, fields by tag, wall
+    seconds)."""
+    from tpusph_torch.bench import build_bench_sim, sync
     sim = build_bench_sim(n, mode=mode, device=device, backend=backend)
     if nbricks > 1:
-        sim.set_mesh(nbricks, shape=shape, axes=axes)
+        sim.set_mesh(nbricks, shape=shape, axes=axes, devices=devices)
     reset_counts()
     t0 = time.perf_counter()
     sim.run(steps)
-    _sync(sim)
+    sync(sim)
     wall = time.perf_counter() - t0
     return sim, {f: sim.get(f) for f in ("x", "v", "rho", "e", "tag")}, wall
 
 
+def hold_bricks(label, a, b, L, rho_tol):
+    """Hold a brick run's fields ``b`` to ``a`` (by tag) at
+    tests/test_dist.py's bars: minimum-image x and v to 5e-4, rho rtol
+    ``rho_tol``, e rtol 1e-4 / atol 1e-5, the same tags. Returns the
+    largest differences."""
+    import numpy as np
+    dx = b["x"] - a["x"]
+    dx = float(np.abs(dx - L * np.round(dx / L)).max())
+    dv = float(np.abs(b["v"] - a["v"]).max())
+    drho = float((np.abs(b["rho"] - a["rho"]) / np.abs(a["rho"])).max())
+    de = float((np.abs(b["e"] - a["e"]) / np.abs(a["e"])).max())
+    assert np.array_equal(a["tag"], b["tag"]), label
+    assert dx <= 5e-4 and dv <= 5e-4, (label, dx, dv)
+    np.testing.assert_allclose(b["rho"], a["rho"], rtol=rho_tol)
+    np.testing.assert_allclose(b["e"], a["e"], rtol=1e-4, atol=1e-5)
+    return dict(max_dx=dx, max_dv=dv, rho_rel=drho, e_rel=de)
+
+
 def phase_bricks_small(n=48 ** 3, steps=30, device="cuda"):
     """Phase 23: the `dynamic` bench at ``n`` particles for ``steps`` steps
-    on one device (the strip) and in 4 bricks on the one card with each
-    inner (strip, column kernel, cell grid; and the strip on a 2 x 2
+    on one device (the strip) and in 4 bricks over every visible card with
+    each inner (strip, column kernel, cell grid; and the strip on a 2 x 2
     procgrid, the corner relay): each brick run held to the one-device run
-    at tests/test_dist.py's bars (minimum-image x and v to 5e-4, rho rtol
-    1e-4 or 2e-4 for the column inner, e rtol 1e-4 / atol 1e-5, the same
-    tags and natoms), its inner, the kernels it launched and no other (no
-    check kernel), and no overflow. Returns the phase's record."""
+    at tests/test_dist.py's bars (hold_bricks; rho rtol 1e-4, 2e-4 for
+    the column inner), its inner, the kernels it launched and no other (no
+    check kernel), and no overflow. Where several cards are visible, the
+    strip's 4 bricks run again all on cuda:0 and the across-cards run is
+    held to that run at the same bars. Returns the phase's record."""
     import numpy as np
+    import torch
     one, a, wall1 = brick_run(n, steps, "strip", device=device)
     if device == "cuda":
         read_counts(STRIP[:3])
+    ncards = torch.cuda.device_count() if device == "cuda" else 1
     L = one.box.length.cpu().numpy().astype(np.float64)
     record = dict(particles=one.natoms, steps=steps, one_device_s=wall1,
-                  runs={})
+                  cards_visible=ncards, runs={})
     print(f"  one device: {one.natoms} particles, strip W "
-          f"{one._strip_geom.w}, {steps} steps in {wall1:.2f} s")
+          f"{one._strip_geom.w}, {steps} steps in {wall1:.2f} s; "
+          f"{ncards} card(s) visible")
+    fields = {}
     for label, backend, shape, axes, names, rho_tol in BRICK_CASES:
         sim, b, wall = brick_run(n, steps, backend, 4, shape, axes, device)
         be = sim._runner.backend
         launches = read_counts(names) if device == "cuda" else {}
-        dx = b["x"] - a["x"]
-        dx = np.abs(dx - L * np.round(dx / L)).max()
-        dv = float(np.abs(b["v"] - a["v"]).max())
-        drho = float((np.abs(b["rho"] - a["rho"])
-                      / np.abs(a["rho"])).max())
-        de = float((np.abs(b["e"] - a["e"]) / np.abs(a["e"])).max())
+        by_card = card_counts(names) if device == "cuda" else {}
+        devs = [str(d) for d in be.devices]
         ov = int(sim.aux.overflow.sum())
         w = be.strip_geom.w if be.strip_geom is not None else None
-        print(f"  {label}: inner {type(be.inner).__name__}, procgrid "
-              f"{sim.brick_spec.shape} over axes {sim.brick_spec.axes}, "
-              f"strip W {w}, halo rows {be.halo_rows(sim.aux)}, "
-              f"rebuilds {sim.rebuilds}; max |dx| {dx:.3e}, |dv| "
-              f"{dv:.3e}, rho rel {drho:.3e}, e rel {de:.3e}; overflow "
-              f"{ov}; {wall:.2f} s")
         assert type(be.inner).__name__ == BRICK_INNERS[backend], be.inner
         assert sim.natoms == one.natoms
-        assert np.array_equal(a["tag"], b["tag"])
         assert ov == 0, ov
-        assert dx <= 5e-4 and dv <= 5e-4, (dx, dv)
-        np.testing.assert_allclose(b["rho"], a["rho"], rtol=rho_tol)
-        np.testing.assert_allclose(b["e"], a["e"], rtol=1e-4, atol=1e-5)
+        if device == "cuda":
+            # the default devices: every visible card, round-robin
+            assert devs == [f"cuda:{b % ncards}" for b in range(4)], devs
+        err = hold_bricks(label, a, b, L, rho_tol)
+        print(f"  {label}: inner {type(be.inner).__name__}, procgrid "
+              f"{sim.brick_spec.shape} over axes {sim.brick_spec.axes}, "
+              f"bricks on {devs}, strip W {w}, halo rows "
+              f"{be.halo_rows(sim.aux)}, rebuilds {sim.rebuilds}; max |dx| "
+              f"{err['max_dx']:.3e}, |dv| {err['max_dv']:.3e}, rho rel "
+              f"{err['rho_rel']:.3e}, e rel {err['e_rel']:.3e}; overflow "
+              f"{ov}; launches by card {by_card}; {wall:.2f} s")
+        fields[label] = b
         record["runs"][label] = dict(
             inner=type(be.inner).__name__, shape=sim.brick_spec.shape,
-            strip_w=w, halo_rows=be.halo_rows(sim.aux),
-            rebuilds=sim.rebuilds, launches=launches, max_dx=float(dx),
-            max_dv=dv, rho_rel=drho, wall_s=wall)
+            devices=devs, strip_w=w, halo_rows=be.halo_rows(sim.aux),
+            rebuilds=sim.rebuilds, launches=launches,
+            launches_by_card=by_card, wall_s=wall, **err)
+    if ncards > 1:
+        # the same 4 strip bricks all on cuda:0: same kernels, builds and
+        # geometry, so the across-cards run should match it to a few ulp
+        sim, b, wall = brick_run(n, steps, "strip", 4, device=device,
+                                 devices=["cuda:0"])
+        read_counts(STRIP[:3])
+        assert [str(d) for d in sim._runner.backend.devices] \
+            == ["cuda:0"] * 4
+        assert int(sim.aux.overflow.sum()) == 0
+        err = hold_bricks("strip 4 across cards vs on cuda:0",
+                          b, fields["strip 4"], L, 1e-4)
+        print(f"  strip 4 across {ncards} cards vs all on cuda:0: max |dx| "
+              f"{err['max_dx']:.3e}, |dv| {err['max_dv']:.3e}, rho rel "
+              f"{err['rho_rel']:.3e}, e rel {err['e_rel']:.3e}; cuda:0 run "
+              f"{wall:.2f} s")
+        record["across_cards_vs_cuda0"] = dict(wall_cuda0_s=wall, **err)
+    elif device == "cuda":
+        print("  one card visible: the 4-brick runs above are all on "
+              "cuda:0; the across-cards run would be the same run")
     if device == "cuda":
         record["cli_mesh4"] = cli_mesh_case()
     return record
@@ -1485,10 +1548,12 @@ def cli_mesh_case(name="heat_slab"):
                             "PallasBackend": ("column_force",)}[inner])
     share = max(e / a for e, a in errs.values() if a > 0)
     print(f"  cli --mesh 4, {name} (golden settings): {sim.natoms} atoms "
-          f"in bricks {sim.brick_spec.shape} on {inner}, golden rows "
+          f"in bricks {sim.brick_spec.shape} on {inner} on "
+          f"{[str(d) for d in sim.mesh]}, golden rows "
           f"within the bar (largest share {share:.3g}), {wall:.1f} s")
     return dict(case=name, inner=inner, atoms=sim.natoms,
-                bar_share=share, launches=launches, wall_s=wall)
+                devices=[str(d) for d in sim.mesh], bar_share=share,
+                launches=launches, wall_s=wall)
 
 
 def config5_run(sim, label, steps, out_dir):
@@ -1498,14 +1563,23 @@ def config5_run(sim, label, steps, out_dir):
     ledgers (phase_main's: owned mass drift <= 1e-6, momentum drift <=
     1e-4 of sum m|v0|, insertions > 0 with the vapour count and the
     liquid debit to match), overflow 0, every tag owned by exactly one
-    brick and the owned rows summing to natoms. Returns (launches, bench
-    line)."""
+    brick and the owned rows summing to natoms. Records each card's peak
+    memory (``torch.cuda.max_memory_allocated``, every visible card) and
+    the host strip chooser's seconds. Returns (launches, launches by card,
+    bench line)."""
     import os
     import numpy as np
+    import torch
+    cards = range(torch.cuda.device_count())
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
     sim.log_path = os.path.join(out_dir, f"log.config5_{label}")
     n0 = sim.natoms
-    launches, bench = phase_main(sim, "boiling", steps, 1)
     bricks = sim.mesh is not None
+    # one device: the column kernel (see phase_config5)
+    launches, bench = phase_main(sim, "boiling", steps, 1,
+                                 "strip" if bricks else "pallas")
+    by_card = card_counts(launches)
     be = sim._runner.backend
     tags = sim.get("tag")
     owned = int((sim.state.alive & sim.state.owned).sum())
@@ -1519,54 +1593,75 @@ def config5_run(sim, label, steps, out_dir):
         assert sum(per) == sim.natoms, per
         bench["owned_per_brick"] = per
         bench["halo_rows"] = be.halo_rows(sim.aux)
+        bench["brick_devices"] = [str(d) for d in be.devices]
+        # every card the bricks used launched every strip kernel
+        for s in STRIP:
+            assert sorted(by_card[s]) == sorted(
+                {d.index for d in be.devices}), (s, by_card[s])
     with open(sim.log_path) as f:
         lines = [ln.rstrip() for ln in f]
     # the timed window's table: the last one in the log
     last = max(i for i, ln in enumerate(lines) if ln.startswith("Loop time"))
     timer = [ln for ln in lines[last:] if "time (%)" in ln
              or ln.startswith("Loop time")]
+    peak = {c: torch.cuda.max_memory_allocated(c) / 2 ** 30 for c in cards}
     bench.update(rebuilds=sim.rebuilds, timer=timer,
                  inner=type(be.inner).__name__ if bricks
-                 else type(be).__name__)
+                 else type(be).__name__, launches_by_card=by_card,
+                 peak_mem_gib_by_card=peak, chooser_s=sim.chooser_s)
     print(f"  config 5 {label}: {bench['particles']} particles, "
           f"{bench['value']} particle-steps/s over {steps} steps (one "
           f"window), strip W {bench['strip_w']}, rebuilds "
           f"{bench['rebuilds']} (per timed window "
           f"{bench['rebuilds_per_window']}), re-choices "
           f"{bench['geometry_rechoices']}, events {bench['insertions']}, "
-          f"launches {launches}, {bench['power_limit']} "
+          f"launches {launches}, by card {by_card}, {bench['bricks']} "
+          f"brick(s) on {bench['cards']} card(s), peak memory by card "
+          f"{ {c: round(g, 3) for c, g in peak.items()} } GiB, host "
+          f"chooser {sim.chooser_s:.1f} s, {bench['power_limit']} "
           f"{bench['device_name']}")
     for ln in timer:
         print(f"    {ln}")
-    return launches, bench
+    return launches, by_card, bench
 
 
-def phase_config5(n=2_000_000, steps=20):
-    """Phase 24: BASELINE.json config 5 (3D boiling at 2M particles) in the
-    bench's `boiling` mode, on one device (the strip) and in 4 bricks on
-    the one card (the strip in every brick), one warmup passing with no
-    re-choice and one timed window of ``steps`` each (config5_run). The
-    4-brick rate against the one-device rate is the decomposition's cost
-    on one card, recorded, not gated. Returns (brick launches, record)."""
+def phase_config5(n=4_000_000, steps=20):
+    """Phase 24: BASELINE.json config 5 (3D boiling at 2-4M particles, here
+    its upper size) in the bench's `boiling` mode, on one device on the
+    column kernel and in 4 bricks over every visible card (the strip in
+    every brick), one warmup passing with no re-choice and one timed
+    window of ``steps`` each (config5_run). One device cannot strip at 4M:
+    the strip chooser's SMEM-budget reject, a TPU cost term kept for
+    parity (ROADMAP, "Kept for parity"), refuses every strip candidate of
+    a 159^3 box (its delta tables would take more than 512 KiB), and the
+    reference's ladder takes the column kernel there too; each 4-brick box
+    strips. The strip bricks' rate over the one-device column kernel's is
+    recorded, not gated. Returns (brick launches, brick launches by card,
+    record)."""
     import tempfile
+    import torch
     from tpusph_torch.bench import build_bench_sim
     record = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_c5_") as out_dir:
         sim = build_bench_sim(n, mode="boiling", device="cuda")
         print(f"  the bench's cube rounding: {sim.natoms} particles")
-        _, record["one_device"] = config5_run(sim, "one", steps, out_dir)
+        _, _, record["one_device"] = config5_run(sim, "one", steps, out_dir)
+        assert record["one_device"]["inner"] == "PallasBackend"
         del sim
+        torch.cuda.empty_cache()
         sim = build_bench_sim(n, mode="boiling", device="cuda")
         sim.set_mesh(4)
-        launches, record["bricks4"] = config5_run(sim, "bricks4", steps,
-                                                  out_dir)
+        launches, by_card, record["bricks4"] = config5_run(
+            sim, "bricks4", steps, out_dir)
         assert record["bricks4"]["inner"] == "StripBackend"
+        assert record["bricks4"]["cards"] == min(
+            4, torch.cuda.device_count())
         del sim
-    record["bricks4_over_one_device"] = (record["bricks4"]["value"]
-                                         / record["one_device"]["value"])
-    print(f"  4 bricks / one device on one card: "
-          f"{record['bricks4_over_one_device']:.3f}")
-    return launches, record
+    ratio = record["bricks4"]["value"] / record["one_device"]["value"]
+    record["strip_bricks4_over_one_device_column"] = ratio
+    print(f"  strip in 4 bricks on {record['bricks4']['cards']} card(s) / "
+          f"column kernel on one device: {ratio:.3f}")
+    return launches, by_card, record
 
 
 def main() -> int:
@@ -1603,7 +1698,6 @@ def main() -> int:
     phase("device", device)
     lib = phase("build", cuda_build.load)
     print(lib.ptxas_log.strip())
-
     n = args.particles
     sim = build_bench_sim(n, mode="dynamic", device="cuda")
     reports = [phase(f"dynamic: sweeps vs plain on the initial layout at {n} "
@@ -1670,13 +1764,14 @@ def main() -> int:
     case_record = phase("cases: the five scripts through tpusph_torch.cli "
                         "(golden rows; heat_slab dx 0.02; bubble_rise dx "
                         "0.01)", phase_cases)
-    bricks_small = phase("bricks: 4 bricks on the one card vs one device, "
-                         "strip / column / cell-grid inners and a 2 x 2 "
-                         "procgrid (dynamic, 48^3, 30 steps)",
-                         phase_bricks_small)
-    brick_launches, config5 = phase(
-        "config 5: boiling at 2M particles on one device and in 4 bricks "
-        "on the one card", phase_config5)
+    ncards = torch.cuda.device_count()
+    where = "on the one card" if ncards == 1 else f"over {ncards} cards"
+    bricks_small = phase(f"bricks: 4 bricks {where} vs one device, strip / "
+                         "column / cell-grid inners and a 2 x 2 procgrid "
+                         "(dynamic, 48^3, 30 steps)", phase_bricks_small)
+    brick_launches, brick_cards, config5 = phase(
+        "config 5: boiling at 4M particles on one device (column kernel) "
+        f"and in 4 bricks {where}", phase_config5)
 
     kernels = []
     for s in KERNELS:
@@ -1686,7 +1781,8 @@ def main() -> int:
             name=f"{key}_sweep", route="cuda", source=SOURCES["strip"],
             replaces=REPLACES[key],
             launches=launches[key] + brick_launches[key],
-            launches_bricks=brick_launches[key], library_ms=None,
+            launches_bricks=brick_launches[key],
+            launches_bricks_by_card=brick_cards[key], library_ms=None,
             **{**last[s], "max_abs_err": max(
                 r[s]["max_abs_err"] for r in reports if s in r)}))
     for kind, counts, after, reps in (

@@ -153,6 +153,9 @@ class Simulation:
         self._strip_drift = 1.0
         self._strip_extra = (0, 0)
         self._strip_violations = 0
+        # host seconds in the strip geometry chooser (one device's or the
+        # bricks' shared one), summed over the run's choices
+        self.chooser_s = 0.0
         self._margin_short = (0, 0)
         self._last_cb_step = 0
         self._rebuilds_before = 0   # strip builds under discarded layouts
@@ -238,12 +241,15 @@ class Simulation:
                  devices=None, shape=None, axes=None):
         """Decompose the run into ``ndev`` bricks (the ``processors``
         command; ``tpusph``'s ``set_mesh``). Call before the first run. The
-        bricks go round-robin over ``devices``, by default the simulation's
-        devices: every CUDA device where the simulation is on the card
-        (all four bricks on ``cuda:0`` on one card), else its own device.
-        Default: 1D bricks along ``axis_dim``, or an auto-chosen multi-axis
-        procgrid where those would be thinner than the halo margin; pass
-        ``shape`` (e.g. (4, 2)) and ``axes`` (e.g. (0, 1)) to force one."""
+        bricks go round-robin over ``devices``, by default every visible
+        CUDA device where the simulation is on the card (one brick per card
+        on a node of four; all on ``cuda:0`` only where one card is
+        visible: ``CUDA_VISIBLE_DEVICES`` pins them), else its own device;
+        ``ndev`` defaults to their number. Each brick's kernels launch on
+        its own card. Default: 1D bricks along ``axis_dim``, or an
+        auto-chosen multi-axis procgrid where those would be thinner than
+        the halo margin; pass ``shape`` (e.g. (4, 2)) and ``axes`` (e.g.
+        (0, 1)) to force one."""
         if devices is None:
             if self.device.type == "cuda":
                 devices = [torch.device("cuda", i)
@@ -541,10 +547,12 @@ class Simulation:
             if self.state is not None:
                 self._pull_state()
             self._strip_geom_key = gkey
+            t0 = time.perf_counter()
             self._strip_geom = choose_strip_geometry(
                 self.box, cutoff, self.spec.dim, skin,
                 x=np.asarray(self._staged["x"]), headroom=headroom,
                 drift=self._strip_drift, extra_rows=self._strip_extra)
+            self.chooser_s += time.perf_counter() - t0
         geom = self._strip_geom
         if geom is None:
             if self._strip_extra != (0, 0) or self._strip_drift > 1.0:
@@ -727,6 +735,7 @@ class Simulation:
         self._dist_local_cap = None
         if (self.backend_name in ("auto", "strip") and want_kernels
                 and self.tables.ntypes <= 6):
+            t0 = time.perf_counter()
             strip_geom, self._dist_local_cap = \
                 dist.choose_strip_geometry_dist(
                     self.box, self.brick_spec, self.spec.dim, cutoff, skin,
@@ -734,6 +743,7 @@ class Simulation:
                     headroom=(1.35 if self.phase_change_config is not None
                               else 1.15),
                     drift=self._strip_drift, extra_rows=self._strip_extra)
+            self.chooser_s += time.perf_counter() - t0
             if strip_geom is None:
                 if self._strip_extra != (0, 0) or self._strip_drift > 1.0:
                     # the abandonment-retry contract of one device

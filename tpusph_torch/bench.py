@@ -192,9 +192,17 @@ def build_bubble_sim(device=None, mode: str = "insert", prob: float = 1.0,
     return sim
 
 
-def _sync(sim):
-    if sim.device.type == "cuda":
-        torch.cuda.synchronize(sim.device)
+def run_devices(sim) -> list:
+    """The distinct devices a run uses, in order: every brick's where the
+    bricks are set, else the simulation's."""
+    return list(dict.fromkeys(sim.mesh)) if sim.mesh else [sim.device]
+
+
+def sync(sim):
+    """Wait for every device the run uses."""
+    for dev in run_devices(sim):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 def run_bench(n_particles: int = 1_000_000, n_steps: int = 50, dim: int = 3,
@@ -221,13 +229,13 @@ def run_bench(n_particles: int = 1_000_000, n_steps: int = 50, dim: int = 3,
         return sim._strip_violations + sim._strip_decays
 
     sim.run(n_steps)
-    _sync(sim)
+    sync(sim)
     warmup_windows = 1
     prev = -1
     while warmup_windows < WARMUP_MAX and rechoices() != prev:
         prev = rechoices()
         sim.run(n_steps)
-        _sync(sim)
+        sync(sim)
         warmup_windows += 1
 
     walls, nbuilds, rechosen = [], [], []
@@ -235,7 +243,7 @@ def run_bench(n_particles: int = 1_000_000, n_steps: int = 50, dim: int = 3,
         nb0, rc0 = sim.rebuilds, rechoices()
         t0 = time.perf_counter()
         sim.run(n_steps)
-        _sync(sim)
+        sync(sim)
         walls.append(time.perf_counter() - t0)
         nbuilds.append(sim.rebuilds - nb0)
         rechosen.append(rechoices() - rc0)
@@ -289,6 +297,9 @@ def run_bench(n_particles: int = 1_000_000, n_steps: int = 50, dim: int = 3,
         "steps": n_steps,
         "particles": int(n),
         "device": str(sim.device),
+        # the bricks (1 without set_mesh) and the CUDA devices they used
+        "bricks": len(sim.mesh) if sim.mesh else 1,
+        "cards": sum(d.type == "cuda" for d in run_devices(sim)),
         "device_name": name,
         "power_limit": limit,
         "torch_version": torch.__version__,

@@ -7,7 +7,9 @@ Reference parity: src/main.cpp + the lammps.cpp CLI switches -in, -var,
 cuda``, the default; it raises where there is no CUDA device, with no
 fallback) unless ``--device cpu`` asks for the CPU. ``--profile`` traces
 the run with ``torch.profiler``. ``--mesh N`` runs the script in N bricks
-(``Simulation.set_mesh``; on one card every brick is on it).
+(``Simulation.set_mesh``): round-robin over every visible card, one brick
+per card on a node of N cards, every brick on the one card where one is
+visible; ``CUDA_VISIBLE_DEVICES`` pins the cards.
 """
 
 from __future__ import annotations
@@ -45,8 +47,9 @@ def main(argv=None):
     run_p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                        help="the torch device (default: the card)")
     run_p.add_argument("--mesh", type=int, default=0,
-                       help="decompose into N bricks (placed round-robin "
-                            "over the devices)")
+                       help="decompose into N bricks, placed round-robin "
+                            "over every visible card (CUDA_VISIBLE_DEVICES "
+                            "pins them; on the CPU all on it)")
     run_p.add_argument("--profile", default=None, metavar="DIR",
                        help="trace the run with torch.profiler into DIR "
                             "(a Chrome trace)")

@@ -360,23 +360,30 @@ __device__ __forceinline__ void filter_window(
 // SM (fewer registers, maybe a spill), where the occupancy API finds it
 // keeps more blocks resident than `fewer`, else `fewer` (PERF.md,
 // Findings: the strip's four- and five-block builds each win on one
-// layout). It sets the shared-memory limit on both builds; the pick is
-// kept per (build pair, threads, smem) in a small table. The launch must
-// set the picked build's limit again: another geometry's pick may have
-// lowered it.
+// layout). It sets the shared-memory limit on both builds, on the current
+// device (the caller's device guard: the tensors' card); the pick is kept
+// per (device, build pair, threads, smem) in a small table (the oldest
+// entry replaced when it is full), so each card of a node runs the
+// occupancy query and sets the limits itself. The launch must set the
+// picked build's limit again: another geometry's pick may have lowered
+// it.
 template <typename Fn>
 Fn pick_build(Fn fewer, Fn more, int threads, size_t smem, cudaError_t* err) {
   struct Pick {
+    int device;
     Fn fewer;
     int threads;
     size_t smem;
     Fn fn;
   };
-  static Pick picks[16];
-  static int npicks = 0;
+  static Pick picks[64];
+  static int npicks = 0, next = 0;
+  int device = 0;
+  *err = cudaGetDevice(&device);
+  if (*err != cudaSuccess) return nullptr;
   for (int q = 0; q < npicks; ++q) {
-    if (picks[q].fewer == fewer && picks[q].threads == threads &&
-        picks[q].smem == smem) {
+    if (picks[q].device == device && picks[q].fewer == fewer &&
+        picks[q].threads == threads && picks[q].smem == smem) {
       return picks[q].fn;
     }
   }
@@ -390,8 +397,9 @@ Fn pick_build(Fn fewer, Fn more, int threads, size_t smem, cudaError_t* err) {
     if (*err != cudaSuccess) return nullptr;
   }
   Fn fn = nm > nf ? more : fewer;
-  picks[npicks % 16] = Pick{fewer, threads, smem, fn};
-  npicks = npicks < 16 ? npicks + 1 : 16;
+  picks[next] = Pick{device, fewer, threads, smem, fn};
+  next = (next + 1) % 64;
+  npicks = npicks < 64 ? npicks + 1 : 64;
   return fn;
 }
 

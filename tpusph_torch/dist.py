@@ -16,12 +16,16 @@ The reference is single-controller: one program drives every brick
 through ``shard_map``, and a ring transfer is a ``lax.ppermute`` over the
 linear brick index. The port keeps that shape: one process holds the
 bricks as a list of per-brick ``ParticleState``s and aux objects, each on
-its own ``torch.device`` (``set_mesh`` places them round-robin over the
-simulation's devices: all on ``cuda:0`` on one card, all on ``cpu`` in the
-CPU tests), and ``_shift_axis`` is a rotation of that list by the axis
-stride, each received tensor moved with ``.to(dst_device)`` (a plain
-hand-over on the same device). A ``torch.distributed`` transport under the
-same interface (one process per card) is later work.
+its own ``torch.device`` (``set_mesh`` places them round-robin over every
+visible card: one brick per card on a node of four, all on ``cuda:0``
+where one card is visible; all on ``cpu`` in the CPU tests), and
+``_shift_axis`` is a rotation of that list by the axis stride, each
+received tensor moved with ``.to(dst_device)`` (a plain hand-over on the
+same device; between two cards PyTorch orders the copy after the work
+queued on both cards' current streams). Each brick's kernels launch on
+its own card (``cuda_build._call`` enters the card's device guard), and
+the plain tensor ops follow their tensors. A ``torch.distributed``
+transport under the same interface (one process per card) is later work.
 
 Comm is staged per axis, as the reference's six-direction sends: exchange
 and borders run axis 0 first, then axis 1 (whose edge slabs include axis-0
@@ -1079,8 +1083,9 @@ class DistRunner:
     the output cadence, freeze-on-overflow, the phase marks), ``loop_time``,
     ``ok_steps`` and ``phase_times`` (Modify, Neigh: the trigger and a
     rebuild, Comm: the per-step forward comm, Pair: the force stage with
-    its halo refreshes). The pool it takes and hands back is the
-    concatenation of the bricks (``DistBackend.concat``)."""
+    its halo refreshes; each the slowest card's time, from an event on
+    every brick's card at each mark). The pool it takes and hands back is
+    the concatenation of the bricks (``DistBackend.concat``)."""
 
     def __init__(self, spec: PhysicsSpec, backend: DistBackend,
                  end_of_step: Optional[Callable] = None):
@@ -1116,7 +1121,7 @@ class DistRunner:
         done = 0
         self.ok_steps = 0
         frozen = int(aux.overflow.sum()) > 0
-        timer = _PhaseTimer(be.devices[0]) if phase_timer else None
+        timer = _PhaseTimer(be.devices) if phase_timer else None
         t0 = time.perf_counter()
         while done < nsteps:
             chunk = nsteps - done if every <= 0 else \

@@ -596,13 +596,13 @@ def plain_band_sweep(sweep: str, fld: torch.Tensor, tabs: DeviceTables,
                                                     reach))
 
 
-class BandSweepKernel:
+class BandSweepKernel(cuda_build.LaunchCount):
     """Wrapper of one CUDA band sweep (``band_{launcher}_launch``).
 
     Replaces ``tpusph.ops.band_pair.make_band_kernel(sweep=...)`` (the
     ``pl.pallas_call`` at band_pair.py:554). CPU tensors take the plain
     version (``plain_band_sweep``); CUDA tensors launch the kernel or
-    raise. ``launches`` counts kernel launches only.
+    raise. ``launches`` and ``by_card`` count kernel launches only.
 
     On the card the sweeps are bound by instruction throughput: each i row
     has 9 x (G + 2k) sub-cells of candidates (~3,500 rows to their live
@@ -628,7 +628,7 @@ class BandSweepKernel:
     def __init__(self, sweep: str, launcher: str | None = None):
         self.sweep = sweep
         self.launcher = launcher or sweep
-        self.launches = 0
+        super().__init__()
 
     def __call__(self, fld: torch.Tensor, tabs: DeviceTables,
                  geom: BandGeometry, spec: PhysicsSpec) -> torch.Tensor:
@@ -655,7 +655,7 @@ class BandSweepKernel:
             flags=spec_flags(spec), T1=T1, lx=geom.lengths[0],
             ly=geom.lengths[1], lcol=geom.lengths[geom.col_axis],
             cutmax2=tabs.cutmax2[self.sweep])
-        self.launches += 1
+        self.count(fld.device)
         return out
 
 

@@ -172,62 +172,95 @@ def load() -> _Lib:
     return _lib
 
 
-def _call(lib_name: str, fn_name: str, tensors, ints, int_names, floats,
-          device) -> None:
+class LaunchCount:
+    """The launch counts of one kernel wrapper, added to where the wrapper
+    launches its kernel and nowhere else: ``launches`` in all, ``by_card``
+    by CUDA device index (the bricks' cards)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.by_card = {}
+
+    def count(self, device: torch.device) -> None:
+        self.launches += 1
+        self.by_card[device.index] = self.by_card.get(device.index, 0) + 1
+
+
+def _call(lib_name: str, fn_name: str, tensors, ints, int_names,
+          floats) -> None:
+    """One launch on the card the tensors lie on: under that card's device
+    guard (the launcher's ``cudaFuncSetAttribute`` and the launch act on
+    the current device, and the stream is that card's current stream).
+    Tensors on more than one device, or off the card, raise: nothing is
+    copied."""
+    device = tensors[0].device
+    others = sorted({str(t.device) for t in tensors} - {str(device)})
+    if device.type != "cuda" or others:
+        raise ValueError(f"{fn_name}: every tensor must lie on one CUDA "
+                         f"device; got {device} and {others}")
     lib = load().handles[lib_name]
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib, fn_name)(
-        *[t.data_ptr() for t in tensors], *[int(ints[k]) for k in int_names],
-        *[float(v) for v in floats], stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, fn_name)(
+            *[t.data_ptr() for t in tensors],
+            *[int(ints[k]) for k in int_names], *[float(v) for v in floats],
+            stream)
     if rc != 0:
         msg = getattr(lib, f"{lib_name}_error_string")(rc).decode()
-        raise RuntimeError(f"{fn_name} failed: CUDA error {rc} ({msg})")
+        raise RuntimeError(f"{fn_name} failed on {device}: CUDA error {rc} "
+                           f"({msg})")
 
 
 def launch(sweep: str, fld, perm, shift, delta, tab2, tab1, out, *,
            cutmax2: float, **ints) -> None:
     """Launch one strip sweep (``sweep`` rho, cgrad, force or the check
-    kernel cgrad_scan) on the current stream; raises on a refused launch.
-    Tensors are checked by the caller (strip_pair.SweepKernel)."""
+    kernel cgrad_scan) on the current stream of its tensors' card; raises
+    on a refused launch. Tensors are checked by the caller
+    (strip_pair.SweepKernel)."""
     _call("strip", f"strip_{sweep}_launch",
           (fld, perm, shift, delta, tab2, tab1, out), ints, _INT_ARGS,
-          (cutmax2,), fld.device)
+          (cutmax2,))
 
 
 def launch_vapor(name: str, fld, perm, shift, delta, out, *, cut2: float,
                  **ints) -> None:
     """Launch the strip vapor sweep (``name`` vapor) or its check kernel
-    (vapor_scan) on the current stream; raises on a refused launch.
-    Tensors are checked by the caller (strip_pair.VaporKernel)."""
+    (vapor_scan) on the current stream of its tensors' card; raises on a
+    refused launch. Tensors are checked by the caller
+    (strip_pair.VaporKernel)."""
     _call("strip", f"strip_{name}_launch", (fld, perm, shift, delta, out),
-          ints, _VAPOR_INT_ARGS, (cut2,), fld.device)
+          ints, _VAPOR_INT_ARGS, (cut2,))
 
 
 def launch_column(sweep: str, fld, tab2, tab1, out, *, lx: float,
                   ly: float, lcol: float, cutmax2: float, **ints) -> None:
     """Launch one column sweep (``sweep`` rho, cgrad, force or the check
-    kernel force_scan) on the current stream; raises on a refused launch.
-    Tensors are checked by the caller (pallas_pair.ColumnSweepKernel)."""
+    kernel force_scan) on the current stream of its tensors' card; raises
+    on a refused launch. Tensors are checked by the caller
+    (pallas_pair.ColumnSweepKernel)."""
     _call("column", f"column_{sweep}_launch", (fld, tab2, tab1, out), ints,
-          _COLUMN_INT_ARGS, (lx, ly, lcol, cutmax2), fld.device)
+          _COLUMN_INT_ARGS, (lx, ly, lcol, cutmax2))
 
 
 def launch_band(sweep: str, fld, tab2, tab1, out, *, lx: float, ly: float,
                 lcol: float, cutmax2: float, **ints) -> None:
     """Launch one band sweep (``sweep`` rho, cgrad, force or a check
-    kernel rho_scan, cgrad_scan, force_scan) on the current stream; raises
-    on a refused launch.
-    Tensors are checked by the caller (band_pair.BandSweepKernel)."""
+    kernel rho_scan, cgrad_scan, force_scan) on the current stream of its
+    tensors' card; raises on a refused launch. Tensors are checked by the
+    caller (band_pair.BandSweepKernel)."""
     _call("band", f"band_{sweep}_launch", (fld, tab2, tab1, out), ints,
-          _BAND_INT_ARGS, (lx, ly, lcol, cutmax2), fld.device)
+          _BAND_INT_ARGS, (lx, ly, lcol, cutmax2))
 
 
 def launch_compact(name: str, fld, perm, shift, delta, tab2, tab1, out, *,
                    cutmax2: float, cut2: float, **ints) -> None:
     """Launch the compacted force sweep (``name`` force) or its one-pass
-    check kernel (force_scan) on the current stream; raises on a refused
-    launch. Tensors are checked by the caller
+    check kernel (force_scan) on the current stream of its tensors' card;
+    raises on a refused launch. Tensors are checked by the caller
     (mxu_compact.CompactForceKernel)."""
     _call("compact", f"compact_{name}_launch",
           (fld, perm, shift, delta, tab2, tab1, out), ints,
-          _COMPACT_INT_ARGS, (cutmax2, cut2), fld.device)
+          _COMPACT_INT_ARGS, (cutmax2, cut2))

@@ -295,7 +295,7 @@ def compact_pass_counts(fld: torch.Tensor, win: StripWindows,
     return counts
 
 
-class CompactForceKernel:
+class CompactForceKernel(cuda_build.LaunchCount):
     """Wrapper of the CUDA compacted force sweep (``launcher`` force:
     ``compact_force_launch``) or of its one-pass check kernel (force_scan:
     ``compact_force_scan_launch``, on no path).
@@ -303,7 +303,7 @@ class CompactForceKernel:
     Replaces ``tpusph.ops.mxu_compact.make_compact_force_kernel`` (the
     ``pl.pallas_call`` at mxu_compact.py:277). CPU tensors take the plain
     version (``plain_compact_force``); CUDA tensors launch the kernel or
-    raise. ``launches`` counts kernel launches only.
+    raise. ``launches`` and ``by_card`` count kernel launches only.
 
     On the card the strip force sweep is bound by rejecting candidates:
     each i-row scans nnbr*W window rows (~3.5k at W 384), ~3% of them
@@ -321,7 +321,7 @@ class CompactForceKernel:
 
     def __init__(self, launcher: str = "force"):
         self.launcher = launcher
-        self.launches = 0
+        super().__init__()
 
     def __call__(self, fld: torch.Tensor, tabs: DeviceTables,
                  win: StripWindows, delta: torch.Tensor, geom: StripGeometry,
@@ -344,7 +344,7 @@ class CompactForceKernel:
             flags=spec_flags(spec), T1=T1, P=int(P),
             cutmax2=tabs.cutmax2["force"], cut2=compact_cut2(cut),
             **_geom_ints(geom))
-        self.launches += 1
+        self.count(fld.device)
         return out
 
 

@@ -189,13 +189,13 @@ def plain_column_sweep(sweep: str, fld: torch.Tensor, tabs: DeviceTables,
         lambda c0, c1, cut2: _column_pairs(fld, cg, c0, c1, cut2, reach))
 
 
-class ColumnSweepKernel:
+class ColumnSweepKernel(cuda_build.LaunchCount):
     """Wrapper of one CUDA column sweep (``column_{launcher}_launch``).
 
     Replaces ``tpusph.ops.pallas_pair.make_column_kernel(sweep=...)`` (the
     ``pl.pallas_call`` at pallas_pair.py:542). CPU tensors take the plain
     version (``plain_column_sweep``); CUDA tensors launch the kernel or
-    raise. ``launches`` counts kernel launches only.
+    raise. ``launches`` and ``by_card`` count kernel launches only.
 
     On the card the sweeps are bound by instruction throughput: each i row
     has 27 cells of candidates (~1,700 rows to the cells' live reach at the
@@ -224,7 +224,7 @@ class ColumnSweepKernel:
     def __init__(self, sweep: str, launcher: str | None = None):
         self.sweep = sweep
         self.launcher = launcher or sweep
-        self.launches = 0
+        super().__init__()
 
     def __call__(self, fld: torch.Tensor, tabs: DeviceTables,
                  cg: ColumnGrid, spec: PhysicsSpec) -> torch.Tensor:
@@ -248,7 +248,7 @@ class ColumnSweepKernel:
             flags=spec_flags(spec), T1=T1, lx=cg.lengths[0],
             ly=cg.lengths[1], lcol=cg.lengths[cg.col_axis],
             cutmax2=tabs.cutmax2[self.sweep])
-        self.launches += 1
+        self.count(fld.device)
         return out
 
 

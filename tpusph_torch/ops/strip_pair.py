@@ -1277,7 +1277,7 @@ def _geom_ints(geom: StripGeometry) -> dict:
                 nnbr=geom.nnbr)
 
 
-class SweepKernel:
+class SweepKernel(cuda_build.LaunchCount):
     """Wrapper of one CUDA strip sweep (``launcher`` rho, cgrad or force),
     or of the one-pass colour-gradient scan (cgrad_scan), the check kernel
     on no path.
@@ -1285,7 +1285,7 @@ class SweepKernel:
     Replaces ``tpusph.ops.strip_pair.make_strip_kernel(sweep=...)`` (the
     ``pl.pallas_call`` at strip_pair.py:1233). CPU tensors take the plain
     version (``plain_sweep``); CUDA tensors launch the kernel or raise.
-    ``launches`` counts kernel launches only.
+    ``launches`` and ``by_card`` count kernel launches only.
 
     On the card the sweeps are bound by instruction throughput over the
     live pairs, a few percent of the nnbr*W window rows (2.3k-4.6k at the
@@ -1312,7 +1312,7 @@ class SweepKernel:
     def __init__(self, sweep: str, launcher: str | None = None):
         self.sweep = sweep
         self.launcher = launcher or sweep
-        self.launches = 0
+        super().__init__()
 
     def __call__(self, fld: torch.Tensor, tabs: DeviceTables,
                  win: StripWindows, delta: torch.Tensor,
@@ -1330,7 +1330,7 @@ class SweepKernel:
             tabs.tab1, out, dim=geom.dim, kernel=spec.kernel,
             flags=spec_flags(spec), T1=T1, cutmax2=tabs.cutmax2[self.sweep],
             **_geom_ints(geom))
-        self.launches += 1
+        self.count(fld.device)
         return out
 
 
@@ -1430,16 +1430,16 @@ def plain_vapor_sweep(fld: torch.Tensor, win: StripWindows,
     return out
 
 
-class VaporKernel:
+class VaporKernel(cuda_build.LaunchCount):
     """Wrapper of the CUDA vapor sweep (``launcher`` vapor), or of its
     one-pass scan (vapor_scan), the check kernel on no path.
 
     Replaces ``tpusph.ops.strip_pair.make_vapor_kernel`` (the
     ``pl.pallas_call`` at strip_pair.py:1348). CPU tensors take the plain
     version (``plain_vapor_sweep``); CUDA tensors launch the kernel or
-    raise. ``launches`` counts kernel launches only. The kernel writes
-    the five output rows of every slot (0 / VAPOR_BIG where there is no
-    vapour neighbour).
+    raise. ``launches`` and ``by_card`` count kernel launches only. The
+    kernel writes the five output rows of every slot (0 / VAPOR_BIG where
+    there is no vapour neighbour).
 
     On the card only the pairs with a vapour row within the cutoff add
     anything, and the vapour rows are a small part of any window. The
@@ -1452,7 +1452,7 @@ class VaporKernel:
 
     def __init__(self, launcher: str = "vapor"):
         self.launcher = launcher
-        self.launches = 0
+        super().__init__()
 
     def __call__(self, fld: torch.Tensor, win: StripWindows,
                  delta: torch.Tensor, geom: StripGeometry, vtype: int,
@@ -1472,7 +1472,7 @@ class VaporKernel:
         cuda_build.launch_vapor(self.launcher, fld, win.perm, win.shift,
                                 delta, out, vtype=int(vtype),
                                 cut2=_vapor_cut2(cut), **_geom_ints(geom))
-        self.launches += 1
+        self.count(fld.device)
         return out
 
 

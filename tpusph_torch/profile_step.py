@@ -10,14 +10,18 @@ Builds the bench (``tpusph_torch.bench``), warms it up as ``run_bench``
 does, then runs one window of ``--steps`` steps under ``torch.profiler``
 and prints, as one JSON line: the window's wall time, the device time of
 each hand-written kernel (launches, total and mean ms), the device time of
-all other device work, the device idle share (wall time not covered by
-device work), and the window's rebuilds and phase-change insertions.
+all other device work (both summed over the cards), the device idle
+share, and the window's rebuilds and phase-change insertions.
 ``--backend`` is the simulation's ``backend_name`` (``auto``: the strip;
 ``band``: the band backend, for a run without phase change; ``pallas``:
 the column kernel on the cell grid); ``--mesh N`` runs the bench in N
-bricks on the card (``Simulation.set_mesh``). The line also carries the
-host ops that took the most host time in the window (``host_top``: self
-time by op, host waits on the device included). Needs a CUDA device.
+bricks over every visible card (``Simulation.set_mesh``; one card: all N
+on it). ``cards`` gives each card's busy time, idle share (wall time
+not covered by its device work) and device launches (kernels, copies
+excluded); ``device_idle_share`` is the largest idle share of the cards.
+The line also carries the host ops that took the most host time
+in the window (``host_top``: self time by op, host waits on the device
+included). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -30,7 +34,8 @@ import time
 import torch
 from torch.autograd import DeviceType
 
-from tpusph_torch.bench import build_bench_sim, card_info, run_bench
+from tpusph_torch.bench import (build_bench_sim, card_info, run_bench,
+                                run_devices, sync)
 
 # the hand-written kernels by their names in tpusph_torch.ops.all_kernels;
 # a sweep kernel's template argument is the Sweep enum (rho 0, cgrad 1,
@@ -76,6 +81,25 @@ def _kernel_of(name: str) -> str | None:
         else f"{kind}_{sweep}_scan"
 
 
+def per_card(prof, indices, wall_s: float) -> dict:
+    """{card index: busy ms, idle share, launches} over the profiled
+    window's device events: busy is every device event's time on the card
+    (kernels and copies), launches its kernels (copies and memsets
+    excluded)."""
+    cards = {i: dict(busy_ms=0.0, launches=0) for i in indices}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        c = cards.setdefault(evt.device_index,
+                             dict(busy_ms=0.0, launches=0))
+        c["busy_ms"] += evt.time_range.elapsed_us() / 1e3
+        if not evt.name.startswith(("Memcpy", "Memset")):
+            c["launches"] += 1
+    for c in cards.values():
+        c["idle_share"] = max(0.0, 1.0 - c["busy_ms"] / (1e3 * wall_s))
+    return cards
+
+
 def profile_window(mode: str, n_particles: int, steps: int,
                    backend: str = "auto", mesh: int = 0) -> dict:
     sim = build_bench_sim(n_particles, mode=mode, backend=backend)
@@ -90,7 +114,7 @@ def profile_window(mode: str, n_particles: int, steps: int,
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         sim.run(steps)
-        torch.cuda.synchronize()
+        sync(sim)
         wall = time.perf_counter() - t0
     kernels = {short: dict(launches=0, ms=0.0) for short in KERNEL_NAMES}
     other_ms = 0.0
@@ -110,11 +134,14 @@ def profile_window(mode: str, n_particles: int, steps: int,
     for k in kernels.values():
         k["mean_ms"] = k["ms"] / k["launches"] if k["launches"] else None
     busy_ms = sum(k["ms"] for k in kernels.values()) + other_ms
+    cards = per_card(prof, [d.index or 0 for d in run_devices(sim)
+                            if d.type == "cuda"], wall)
     name, limit = card_info()
     return dict(mode=mode, particles=n0, steps=steps, wall_ms=1e3 * wall,
                 kernels=kernels, other_device_ms=other_ms,
                 device_busy_ms=busy_ms,
-                device_idle_share=max(0.0, 1.0 - busy_ms / (1e3 * wall)),
+                device_idle_share=max(c["idle_share"] for c in cards.values()),
+                cards=cards,
                 rebuilds=sim.rebuilds - nb0,
                 insertions=sim.natoms - n0,
                 backend=warm["backend"], strip_w=warm["strip_w"],
@@ -135,7 +162,7 @@ def main() -> None:
     ap.add_argument("--backend", default="auto",
                     choices=("auto", "band", "pallas"))
     ap.add_argument("--mesh", type=int, default=0,
-                    help="run in this many bricks on the card")
+                    help="run in this many bricks over every visible card")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")

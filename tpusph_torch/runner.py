@@ -11,8 +11,9 @@ overflow counter. CUDA graphs that remove both are later work.
 The run-end Timer table's split (src/timer.cpp, ``phase_times``) comes,
 where the caller asks for it, from marks around the phases of every step:
 CUDA events on the card (read after the run's last synchronize; an event
-pair spans the host work of its phase too, as the device waits for it),
-the host clock on the CPU. The marks change no result.
+pair spans the host work of its phase too, as the device waits for it;
+over bricks on several cards, the slowest card's interval), the host
+clock on the CPU. The marks change no result.
 """
 
 from __future__ import annotations
@@ -74,7 +75,7 @@ class Runner:
         done = 0
         self.ok_steps = 0
         frozen = int(aux.overflow.sum()) > 0
-        timer = _PhaseTimer(state.device) if phase_timer else None
+        timer = _PhaseTimer([state.device]) if phase_timer else None
         t0 = time.perf_counter()
         while done < nsteps:
             chunk = nsteps - done if every <= 0 else \
@@ -118,12 +119,17 @@ class Runner:
 
 
 class _PhaseTimer:
-    """Marks between the phases of each step: CUDA events on the card (read
-    after the run's synchronize), the host clock on the CPU. A step's
-    marks count once it is committed (a frozen step is not)."""
+    """Marks between the phases of each step. On the card: at each mark one
+    CUDA event on the current stream of each device (every brick's card;
+    one device gives one event a mark), read after the run's synchronize;
+    a phase's time is the slowest device's interval between its two marks,
+    so over several cards the phases' times can add up to more than the
+    run's wall time. The host clock on the CPU. A step's marks count once
+    it is committed (a frozen step is not)."""
 
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
+    def __init__(self, devices):
+        self.devices = list(dict.fromkeys(torch.device(d) for d in devices))
+        self.cuda = self.devices[0].type == "cuda"
         self.steps = []
         self.marks = []
 
@@ -131,9 +137,12 @@ class _PhaseTimer:
         if name is None:
             self.marks = []
         if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append((name, ev))
+            evs = []
+            for dev in self.devices:
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record(torch.cuda.current_stream(dev))
+                evs.append(ev)
+            self.marks.append((name, evs))
         else:
             self.marks.append((name, time.perf_counter()))
 
@@ -145,7 +154,8 @@ class _PhaseTimer:
         out = {}
         for marks in self.steps:
             for (_, a), (name, b) in zip(marks, marks[1:]):
-                dt = a.elapsed_time(b) / 1e3 if self.cuda else b - a
+                dt = max(ea.elapsed_time(eb) for ea, eb in zip(a, b)) / 1e3 \
+                    if self.cuda else b - a
                 out[name] = out.get(name, 0.0) + dt
         return out
 
