@@ -1,0 +1,18 @@
+"""neigh_ms_per_step.bricks: The Timer table's Neigh: the rebuild trigger's
+host sync and the rebuild (layout, sort) (``Runner.phase_times``, CUDA
+events; over cards the slowest card's interval), summed over the timed
+window's calls, per step."""
+
+from __future__ import annotations
+
+from sphbench.metrics._read import timer_ms_per_step
+
+NAME = "neigh_ms_per_step.bricks"
+UNIT = "ms"
+SOURCE = "program_span"
+LAYER = "runner and dist"
+MOVES = "particle_steps_per_s.bricks"
+
+
+def read(ctx):
+    return timer_ms_per_step(ctx, "Neigh")
