@@ -18,16 +18,20 @@ sys.path.insert(0, ".")
 from tpusph.api import Simulation
 
 
-def _sim(extra=None):
+def _sim(extra=None, n=12, nz=12):
+    """A periodic ``n x n x nz`` lattice (dx 1), heat conduction only, a
+    rebuild every 2 steps and a decay observation every 2. ``n`` sets the
+    lattice planes along x and y, ``nz`` those along z."""
     dx = 1.0
-    n = 12
     L = n * dx
     h = 2.4 * dx
     sim = Simulation(dim=3, screen=False)
     sim.backend_name = "strip"
-    sim.create_box([0, 0, 0], [L, L, L], periodic=(True,) * 3, ntypes=1)
+    sim.create_box([0, 0, 0], [L, L, nz * dx], periodic=(True,) * 3,
+                   ntypes=1)
     ax = np.arange(n, dtype=np.float32) * dx
-    g = np.stack(np.meshgrid(ax, ax, ax, indexing="ij"), -1).reshape(-1, 3)
+    az = np.arange(nz, dtype=np.float32) * dx
+    g = np.stack(np.meshgrid(ax, ax, az, indexing="ij"), -1).reshape(-1, 3)
     sim.add_particles(g, np.ones(len(g), np.int32), rho=1.0, e=1.0,
                       cv=1.0, rmass=dx**3)
     e = np.where(g[:, 0] < L / 2, 1.5, 1.0).astype(np.float32)
@@ -93,9 +97,18 @@ def test_strip_retry_after_abandonment():
     # floors so large every strip candidate dies -> fallback backend; after
     # K calm rebuilds the retry re-chooses with fresh measures and strip
     # comes back (r5: the 500k bubble-rise settling wave abandoned strip
-    # for the rest of the run before this path existed)
+    # for the rest of the run before this path existed).
+    # The lattice must be one that really abandons at these floors. The
+    # 12^3 box does not: under the 1152-lane width cap it still strips, at
+    # W 576. Nor does the torch port's 6 x 6 x 36: that test turns phase
+    # change on (strip headroom 1.35), while this system has none (headroom
+    # 1.08) and strips at W 1008. At 6 x 6 x 48 every candidate goes past the
+    # cap, the strip is abandoned and the band backend runs; the lean
+    # geometry the retry comes back to has W 128. The box is kept 6 wide,
+    # more than twice cutoff plus skin (2 x 2.8 = 5.6), so no two periodic
+    # images of one neighbour fall inside a particle's range.
     from tpusph.ops.strip_pair import StripBackend
-    sim = _sim(extra=(4096, 4096))
+    sim = _sim(extra=(4096, 4096), n=6, nz=48)
     with pytest.warns(RuntimeWarning, match="abandoned"):
         sim.run(2)
     assert not isinstance(sim._runner.backend, StripBackend)
