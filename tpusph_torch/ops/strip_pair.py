@@ -26,6 +26,7 @@ field matrix at a ``delta``-shifted row offset.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import NamedTuple
 
@@ -663,18 +664,16 @@ def build_strips(state: ParticleState, geom: StripGeometry, box: Box,
                        hi_live[:, None])
     zc = torch.gather(zcol, 1, cs)
     b_idx = torch.arange(nblocks, device=dev)
-    offsets = _neighbor_offsets(geom)
-    perms = [_plane_neighbor_perm(geom, ox, oy) for ox, oy in offsets]
+    perms, valids = _neighbor_tables(geom, dev)
+    zps = [zcol[perm].contiguous() for perm in perms]
     deltas = []
-    for perm, valid in perms:
-        zp = zcol[torch.as_tensor(perm, device=dev)].contiguous()
+    for zp, valid in zip(zps, valids):
         r_nc = torch.searchsorted(zp, zc.contiguous())
         d = torch.round(_fdiv((r_nc - cs).to(torch.float32), B)
                         ).to(torch.int64)
         d = torch.minimum(torch.maximum(d, -b_idx[None, :]),
                           nblocks - 1 - b_idx[None, :])
-        deltas.append(torch.where(torch.as_tensor(valid, device=dev)[:, None],
-                                  d, 0))
+        deltas.append(torch.where(valid[:, None], d, 0))
     delta = torch.stack(deltas, dim=1).to(torch.int32)
 
     # ---- the rank-exact coverage check: each tile's delta-shifted window
@@ -697,11 +696,10 @@ def build_strips(state: ParticleState, geom: StripGeometry, box: Box,
     need_lo = torch.full(zf_self.shape, NO_NEED, dtype=torch.int64,
                          device=dev)
     need_hi = torch.full_like(need_lo, NO_NEED)
-    for kk, (perm, valid) in enumerate(perms):
-        vmask = torch.as_tensor(valid, device=dev)[:, None] & tile_alive
+    for kk, (zp, valid) in enumerate(zip(zps, valids)):
+        vmask = valid[:, None] & tile_alive
         d_rows = (delta[:, kk, :].to(torch.int64) * B).repeat_interleave(
             geom.t_blk, dim=1)
-        zp = zcol[torch.as_tensor(perm, device=dev)].contiguous()
         lo_need = torch.searchsorted(zp, zf_self - ce)
         hi_need = torch.searchsorted(zp, zl_self + ce, right=True) - 1
         s_lo = torch.minimum(win_lo0 + d_rows, hi_need + 1) - lo_need
@@ -740,6 +738,18 @@ class StripWindows(NamedTuple):
     neighbour), shift (ncols, nnbr, 2) float32 plane image shift."""
     perm: torch.Tensor
     shift: torch.Tensor
+
+
+@functools.lru_cache(maxsize=64)
+def _neighbor_tables(geom: StripGeometry, device: torch.device):
+    """Per offset the neighbour column of every column (int64, 0 where
+    there is none) and its valid mask, on ``device``: built once per
+    geometry and device, so a rebuild copies no host table."""
+    perms = [_plane_neighbor_perm(geom, ox, oy)
+             for ox, oy in _neighbor_offsets(geom)]
+    return (tuple(torch.as_tensor(p, dtype=torch.int64, device=device)
+                  for p, _ in perms),
+            tuple(torch.as_tensor(v, device=device) for _, v in perms))
 
 
 def strip_windows(geom: StripGeometry, device) -> StripWindows:
@@ -1484,6 +1494,24 @@ KERNELS = {**SWEEPS, "vapor": vapor_sweep}
 SCANS = {"cgrad": cgrad_scan, "vapor": vapor_scan}
 
 
+def _window_reduce(arr: torch.Tensor, k: int, op, fill: float
+                   ) -> torch.Tensor:
+    """``op`` (``torch.maximum`` / ``torch.minimum``) over every k
+    consecutive chunks of each row of ``arr`` (ncols, n), padded with k
+    ``fill`` chunks on both sides: (ncols, n + k + 1), entry p reduces
+    padded chunks [p, p + k), i.e. chunks [p - k, p) of ``arr``. A window
+    that starts at or below -k or at or above n holds fill alone. Doubling:
+    ceil(log2 k) ops; overlapping halves are harmless (op is idempotent)."""
+    m = torch.nn.functional.pad(arr, (k, k), value=fill)
+    span = 1
+    while 2 * span <= k:
+        m = op(m[:, :-span], m[:, span:])
+        span *= 2
+    if span < k:
+        m = op(m[:, :span - k], m[:, k - span:])
+    return m
+
+
 # --------------------------------------------------------------------------
 # backend
 # --------------------------------------------------------------------------
@@ -1499,6 +1527,17 @@ class StripBackend(BandBackend):
                  rebuild_every: int = 0, device="cpu"):
         super().__init__(geom, ntypes, rebuild_every)
         self.win = strip_windows(geom, device)
+        # the mixed flag's per-geometry tables: each offset's neighbour
+        # column (valid mask; base row of its reduced chunks), and each
+        # tile's window start before ``delta``, as (nblocks, t_blk), in the
+        # reduced rows (``_window_reduce``)
+        k = geom.mlo + geom.stride + geom.mhi
+        perm = self.win.perm.transpose(0, 1).long()[..., None, None]
+        self._mix_valid = (perm >= 0).reshape(geom.nnbr, geom.ncols, 1)
+        self._mix_base = perm.clamp(min=0) * (geom.n32 + k + 1)
+        t = torch.arange(geom.ntiles, device=perm.device)
+        self._mix_t0 = (geom.stride * t - geom.mlo + k).reshape(
+            geom.nblocks, geom.t_blk)
 
     def _sweep(self, sweep, fld, tabs, spec, aux):
         return SWEEPS[sweep](fld, tabs, self.win, aux.delta, self.geom, spec)
@@ -1509,47 +1548,39 @@ class StripBackend(BandBackend):
         holds more than one phase (the cgrad sweep runs); 0.5 — one phase,
         but some candidate tile is mixed (the force sweep keeps its
         capillary terms); 0.0 — no mixed tile within one window reach
-        (capillary terms are exactly zero)."""
+        (capillary terms are exactly zero).
+
+        The reference loops over the window's chunks and the neighbour
+        offsets inside ``jit``; here each window reduction is a doubling
+        max / min over the chunk axis (``_window_reduce``) and one gather
+        of every (offset, column, tile) window start, so the operator count
+        does not grow with the window's chunk count. Max and min pick one
+        of their inputs, so the flag is the reference's bit for bit."""
         geom = self.geom
-        dev = type_f.device
-        stride = geom.stride
-        bpc = geom.block_rows // geom.ch
         ty = type_f.reshape(geom.ncols, geom.n32, geom.ch)
         tmax_c = ty.amax(dim=2)
         tmin_c = torch.where(ty > 0, ty, 99.0).amin(dim=2)
-        t_idx = torch.arange(geom.ntiles, device=dev)
+        # per (offset, column, tile) flat start of the window in the
+        # reduced rows of the offset's neighbour column
+        k = geom.mlo + geom.stride + geom.mhi
+        dch = aux.delta.long().transpose(0, 1)[..., None] * (
+            geom.block_rows // geom.ch)
+        start = torch.clamp(self._mix_t0 + dch, 0, geom.n32 + k)
+        idx = (self._mix_base + start).reshape(-1)
 
-        def win_reduce(arr_p, red, fill, dch):
-            outs = []
-            for cix in range(-geom.mlo, stride + geom.mhi):
-                ci = stride * t_idx[None, :] + cix + dch
-                oob = (ci < 0) | (ci >= geom.n32)
-                v = torch.gather(arr_p, 1, torch.clamp(ci, 0, geom.n32 - 1))
-                outs.append(torch.where(oob, fill, v))
-            return red(torch.stack(outs), dim=0)
+        def win_pass(arr, op, fill):
+            red = _window_reduce(arr, k, op, fill)
+            v = red.reshape(-1).index_select(0, idx).reshape(
+                geom.nnbr, geom.ncols, geom.ntiles)
+            v = torch.where(self._mix_valid, v, fill)
+            return v.amax(dim=0) if op is torch.maximum else v.amin(dim=0)
 
-        def win_pass(cmax, cmin=None):
-            maxs, mins = [], []
-            for kk, (ox, oy) in enumerate(_neighbor_offsets(geom)):
-                perm, valid = _plane_neighbor_perm(geom, ox, oy)
-                perm = torch.as_tensor(perm, device=dev)
-                vm = torch.as_tensor(valid, device=dev)[:, None]
-                dch = (aux.delta[:, kk, :].long() * bpc).repeat_interleave(
-                    geom.t_blk, dim=1)
-                wmax = win_reduce(cmax[perm], torch.amax, 0.0, dch)
-                maxs.append(torch.where(vm, wmax, 0.0))
-                if cmin is not None:
-                    wmin = win_reduce(cmin[perm], torch.amin, 99.0, dch)
-                    mins.append(torch.where(vm, wmin, 99.0))
-            gmax = torch.stack(maxs).amax(dim=0)
-            if cmin is None:
-                return gmax, None
-            return gmax, torch.stack(mins).amin(dim=0)
-
-        gmax, gmin = win_pass(tmax_c, tmin_c)
+        gmax = win_pass(tmax_c, torch.maximum, 0.0)
+        gmin = win_pass(tmin_c, torch.minimum, 99.0)
         mixed = (gmax > gmin + 0.5) & (gmin < 90.0)
-        mixed_c = mixed.to(torch.float32).repeat_interleave(stride, dim=1)
-        st_need, _ = win_pass(mixed_c)
+        mixed_c = mixed.to(torch.float32).repeat_interleave(geom.stride,
+                                                            dim=1)
+        st_need = win_pass(mixed_c, torch.maximum, 0.0)
         flag = torch.maximum(mixed.to(torch.float32),
                              0.5 * (st_need > 0.5).to(torch.float32))
         return flag.reshape(-1).repeat_interleave(geom.ts)
