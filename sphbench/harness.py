@@ -4,8 +4,12 @@ the check, by the names in ``BENCHMARK.json``.
 Everything that belongs to one cell, configuration or metric is found by
 name: ``workloads/<cell>.json`` (the traffic: the backend, the bricks,
 the steps per call and the limits of the check), ``configs/<config>.json``
-(the scene and its physics) and ``metrics/<metric>.py`` (a reader per
-per-layer metric).
+(the scene's numbers and its physics), the modules that the configuration
+file names under ``scene`` (``scenes/<scene>.py``: its inputs, the
+program's simulation of them, its box and type ids) and ``reference``
+(``reference/<reference>.py``: the plain reference's step and its rule),
+``scenes/cube.py`` and ``reference/sph.py`` where it names none, and
+``metrics/<metric>.py`` (a reader per metric).
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from pathlib import Path
 
 import torch
 
-from sphbench import check, pairs, scene, trace
+from sphbench import check, pairs, trace
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -29,6 +33,8 @@ WARMUP_MAX = 8
 # the traced extra window after the timed one, at least this long
 PROFILE_SECONDS = 3.0
 FORBIDDEN = ("jax", "jaxlib", "flax", "tpusph")
+# what a configuration file that names no scene or reference runs
+DEFAULT_SCENE, DEFAULT_REFERENCE = "cube", "sph"
 
 
 def load_json(path: Path) -> dict:
@@ -50,13 +56,21 @@ def load_cell(name: str):
     return bench, cell, work, cfg
 
 
-def metric_reader(name: str):
-    path = HERE / "metrics" / f"{name}.py"
+def load_part(kind: str, name: str, root: Path = HERE):
+    """The module ``<root>/<kind>/<name>.py``: a scene, a reference or a
+    metric's reader."""
+    path = root / kind / f"{name}.py"
+    if not path.is_file():
+        raise SystemExit(f"no {kind} module {name!r} at {path}")
     spec = importlib.util.spec_from_file_location(
-        "sphbench_metric_" + name.replace(".", "_"), path)
+        f"sphbench_{kind}_" + name.replace(".", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def metric_reader(name: str):
+    return load_part("metrics", name)
 
 
 def cell_metrics(bench: dict, cell: str, kind: str) -> list:
@@ -92,14 +106,13 @@ def memory_peak(sim) -> int:
                 for d in run_devices(sim) if d.type == "cuda"), default=0)
 
 
-def pair_counts(sim, cfg) -> dict:
-    """``pairs.count`` on the owned particles, on the run's first device."""
+def pair_counts(sim, box: pairs.Box, cut: float) -> dict:
+    """``pairs.count`` on the owned particles in the scene's box, on the
+    run's first device."""
     dev = run_devices(sim)[0]
     x = torch.as_tensor(sim.get("x"), device=dev)
     typ = torch.as_tensor(sim.get("type"), device=dev)
-    length = cfg["per_side"] * cfg["dx"]
-    x = torch.remainder(x, length)
-    out = pairs.count(x, typ, [length] * 3, cfg["h"])
+    out = pairs.count(x, typ, box.length, cut, box.lo, box.periodic)
     del x, typ
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -184,12 +197,16 @@ def card_info() -> dict:
 
 def run_cell(cell_name: str, seed: int, seconds: float, traced: bool,
              t_process0: float, device: str = "cuda", control: bool = False,
-             spec=None, log=print) -> dict:
+             spec=None, parts: Path = HERE, log=print) -> dict:
     """One run; returns the result line's object. ``control`` puts the
     bfloat16 reference in the program's place in the check. For the tests:
-    ``device`` may be the CPU, and ``spec`` gives (benchmark, cell,
-    workload, configuration) in place of the files."""
+    ``device`` may be the CPU, ``spec`` gives (benchmark, cell, workload,
+    configuration) in place of the files, and ``parts`` the folder whose
+    ``scenes/`` and ``reference/`` hold the configuration's modules."""
     bench, cell, work, cfg = spec or load_cell(cell_name)
+    scene = load_part("scenes", cfg.get("scene", DEFAULT_SCENE), parts)
+    case = check.Case(cfg, scene.box(cfg), scene.TYPES, load_part(
+        "reference", cfg.get("reference", DEFAULT_REFERENCE), parts))
     inputs = scene.make_inputs(cfg, seed)
     sim = scene.build_sim(cfg, inputs, seed, device, work["backend"])
     t_c = time.perf_counter()
@@ -224,7 +241,7 @@ def run_cell(cell_name: str, seed: int, seconds: float, traced: bool,
     if traced:
         peak0 = memory_peak(sim)
         t_c = time.perf_counter()
-        counts["start"] = pair_counts(sim, cfg)
+        counts["start"] = pair_counts(sim, case.box, cfg["h"])
         t_count = time.perf_counter() - t_c
         for d in run_devices(sim):
             if d.type == "cuda":
@@ -237,7 +254,7 @@ def run_cell(cell_name: str, seed: int, seconds: float, traced: bool,
     peak_by_card = [torch.cuda.max_memory_allocated(d)
                     for d in run_devices(sim) if d.type == "cuda"]
     if traced:
-        counts["end"] = pair_counts(sim, cfg)
+        counts["end"] = pair_counts(sim, case.box, cfg["h"])
     info = dict(cell=cell_name, seed=seed, backend=type(
         sim._runner.backend).__name__, bricks=len(sim.mesh or [1]),
         cards=len(cards), warmup_calls=warm, chooser_s=sim.chooser_s,
@@ -266,12 +283,12 @@ def run_cell(cell_name: str, seed: int, seconds: float, traced: bool,
     numbers.update(check.ledger_numbers(snap_p, inputs))
     ref_dev = torch.device(device)
     t_c = time.perf_counter()
-    ref = check.Reference(cfg, snap_s, torch.float64, ref_dev)
+    ref = check.Reference(case, snap_s, torch.float64, ref_dev)
     if control:
-        cand = check.control_candidate(cfg, snap_s, snap_p, seed, istep,
+        cand = check.control_candidate(case, snap_s, snap_p, seed, istep,
                                        ref_dev)
     else:
-        cand = check.program_candidate(snap_s, snap_p, ref)
+        cand = check.program_candidate(snap_p, ref)
     numbers.update(check.step_numbers(ref, cand, snap_p, seed, istep,
                                       firing))
     info["check_s"] = time.perf_counter() - t_c

@@ -22,7 +22,15 @@ imported):
                          v += dt/2 f/m; e += dt/2 de; rho += dt/2 drho
 
 with the Lucy kernel W(r) = 105/(16 pi h^3) (1 + 3q)(1 - q)^3, q = r/h.
-Every sweep of the bench has the one cutoff h.
+Every sweep of the bench has the one cutoff h. The box is the scene's: the
+minimum image and the wrap apply along its periodic axes only.
+
+A reference module, found by the name a configuration file gives under
+``reference`` (this one where it gives none), provides ``Physics(cfg, box,
+dtype, device)``, ``step(ph, s)`` and ``rule(cfg, types, ph, s, out, pl)``,
+the check's rule for what the configuration's fix phase_change does on a
+firing (None where it has none): here fix phase_change's ``mode insert``
+(``reference/insert.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import math
 import torch
 
 from sphbench.pairs import PairList
+from sphbench.reference import insert
 
 EPS_CG = 1e-6
 
@@ -39,12 +48,12 @@ EPS_CG = 1e-6
 class Physics:
     """The coefficients of a configuration, per type (index 0 unused)."""
 
-    def __init__(self, cfg: dict, dtype, device):
+    def __init__(self, cfg: dict, box, dtype, device):
         kw = dict(dtype=dtype, device=device)
         self.dtype, self.device = dtype, device
+        self.box = box
         self.h = float(cfg["h"])
         self.dt = float(cfg["dt"])
-        self.length = float(cfg["per_side"] * cfg["dx"])
         rho0 = [1.0, cfg["rho_liquid"], cfg["rho_vapor"]]
         c0 = float(cfg["c0"])
         self.rho0 = torch.tensor(rho0, **kw)
@@ -141,16 +150,24 @@ def force_stage(ph: Physics, pl: PairList, p: dict) -> dict:
     return dict(rho=rho, cg=cg, f=f, drho=drho, de=de)
 
 
+def pair_list(ph: Physics, x) -> PairList:
+    """The pairs within the cutoff of the positions ``x`` in the box."""
+    b = ph.box
+    return PairList(x, b.length, ph.h, b.lo, b.periodic)
+
+
 def step(ph: Physics, s: dict) -> dict:
     """One velocity-Verlet step of the owned particles ``s`` (x, v, vest,
-    e, m, cv, type as tensors in ``ph``'s dtype and device; type int64),
-    as the program's run of one step does it: a force stage on the step's
-    start (Verlet::setup), the first half, a force stage, the second half.
+    e, m, cv, type as tensors in ``ph``'s dtype and device; type int64;
+    mobile, bool, which this step does not read: the bench scenes have no
+    stationary rows), as the program's run of one step does it: a force
+    stage on the step's start (Verlet::setup), the first half, a force
+    stage, the second half.
     Returns the state after the step, the force stage's outputs and the
     pair list of the step's end positions."""
     dtf = 0.5 * ph.dt
     p = dict(s)
-    pl0 = PairList(torch.remainder(s["x"], ph.length), ph.length, ph.h)
+    pl0 = pair_list(ph, s["x"])
     st0 = force_stage(ph, pl0, p)
     del pl0
     m = s["m"][:, None]
@@ -159,7 +176,7 @@ def step(ph: Physics, s: dict) -> dict:
     x1 = s["x"] + ph.dt * v1
     e1 = s["e"] + dtf * st0["de"]
     p1 = dict(p, x=x1, v=v1, vest=vest1, e=e1)
-    pl1 = PairList(torch.remainder(x1, ph.length), ph.length, ph.h)
+    pl1 = pair_list(ph, x1)
     st1 = force_stage(ph, pl1, p1)
     out = dict(p1, v=v1 + dtf * st1["f"] / m, e=e1 + dtf * st1["de"],
                rho=st1["rho"] + dtf * st1["drho"], f=st1["f"],
@@ -167,40 +184,10 @@ def step(ph: Physics, s: dict) -> dict:
     return out, pl1
 
 
-def vapour_near(ph: Physics, pl: PairList, typ, vapour_type: int):
-    """Per row: the vapour neighbours within the cutoff (count) and the
-    smallest rsq to one (inf where none), from the step's pair list."""
-    n = typ.shape[0]
-    count = torch.zeros(n, dtype=torch.int64, device=typ.device)
-    best = torch.full((n,), float("inf"), dtype=ph.dtype, device=ph.device)
-    for sl, i, j, dx, rsq in pl.blocks():
-        vap = typ[j] == vapour_type
-        count.index_add_(0, i[vap], torch.ones_like(i[vap]))
-        best.scatter_reduce_(0, i[vap], rsq[vap], reduce="amin")
-    return count, best
-
-
-def nearest_directions(ph: Physics, pl: PairList, typ, vapour_type: int,
-                       rows, best, rel: float):
-    """For each row in ``rows``: the unit directions to every vapour
-    neighbour whose rsq is within ``rel`` of the smallest (a near tie may
-    be broken either way by a rounding), as (pair row, direction)."""
-    want = torch.full((typ.shape[0],), -1, dtype=torch.int64,
-                      device=typ.device)
-    want[rows] = torch.arange(rows.shape[0], device=typ.device)
-    out_k, out_dir = [], []
-    for sl, i, j, dx, rsq in pl.blocks():
-        k = want[i]
-        sel = (k >= 0) & (typ[j] == vapour_type) \
-            & (rsq <= best[i] * (1.0 + rel))
-        if bool(sel.any()):
-            d = -dx[sel]          # toward the vapour: x_j - x_i
-            out_k.append(k[sel])
-            # a low precision can round two positions to one: no direction
-            norm = torch.sqrt((d * d).sum(-1, keepdim=True))
-            out_dir.append(d / torch.clamp(norm, min=1e-30))
-    if not out_k:
-        return (torch.zeros(0, dtype=torch.int64, device=typ.device),
-                torch.zeros(0, 3, dtype=ph.dtype, device=ph.device))
-    return torch.cat(out_k), torch.cat(out_dir)
-
+def rule(cfg: dict, types: dict, ph: Physics, s: dict, out: dict,
+         pl: PairList):
+    """fix phase_change's ``mode insert`` where the configuration has a
+    phase change, else None."""
+    if not cfg.get("phase_change"):
+        return None
+    return insert.Insert(cfg, types, ph, s, out, pl)

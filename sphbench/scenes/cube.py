@@ -1,20 +1,27 @@
-"""The inputs of a cell, made from its configuration file and ``--seed``,
-and the simulation of the program that runs them.
-
-The scene is the port's bench scene (a periodic box of liquid on a cubic
-lattice with a vapour sphere of radius ``vapour_radius`` x L at its centre,
-thermal velocities, and in boiling a hot liquid shell with fix
-phase_change), rebuilt here from the configuration's numbers on the
-program's public ``Simulation`` API. The seed draws the velocities and
-seeds the phase change's draws; every seed has the same lattice, sizes and
-physics.
+"""The default scene: the port's bench scene, a periodic cube of liquid on
+a cubic lattice with a vapour sphere of radius ``vapour_radius`` x L at
+its centre, thermal velocities, and in boiling a hot liquid shell with fix
+phase_change, rebuilt here from the configuration's numbers on the
+program's public ``Simulation`` API. A configuration file that names no
+``scene`` runs it. The seed draws the velocities and seeds the phase
+change's draws; every seed has the same lattice, sizes and physics.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from sphbench.pairs import Box
+
 LIQUID, VAPOUR = 1, 2
+# the type ids that the reference's rule reads
+TYPES = {"liquid": LIQUID, "vapour": VAPOUR}
+
+
+def box(cfg: dict) -> Box:
+    """[0, L) along each axis, L = per_side x dx, periodic everywhere."""
+    length = cfg["per_side"] * cfg["dx"]
+    return Box(lo=(0.0,) * 3, hi=(length,) * 3, periodic=(True,) * 3)
 
 
 def make_inputs(cfg: dict, seed: int) -> dict:
@@ -65,9 +72,9 @@ def build_sim(cfg: dict, inputs: dict, seed: int, device, backend: str):
 
     sim = Simulation(dim=3, screen=False, device=device)
     sim.backend_name = backend
-    length = cfg["per_side"] * cfg["dx"]
+    b = box(cfg)
     h = cfg["h"]
-    sim.create_box([0, 0, 0], [length] * 3, periodic=(True,) * 3, ntypes=2)
+    sim.create_box(list(b.lo), list(b.hi), periodic=b.periodic, ntypes=2)
     sim.add_particles(inputs["x"], inputs["type"], v=inputs["v"],
                       rho=inputs["rho"], e=inputs["e"], cv=inputs["cv"],
                       rmass=inputs["rmass"])

@@ -8,7 +8,10 @@ import dataclasses
 import pytest
 import torch
 
-from _tiny import run_tiny
+from _tiny import freeze_bricks, run_tiny
+from sphbench import harness
+
+TABLES = harness.load_json(harness.HERE / "tests" / "tiny_tables.json")
 
 BRICKS = dict(cell_name="boiling_4m.bricks4_card1", per_side=24,
               steps_per_call=10)
@@ -29,21 +32,18 @@ def _patch_forces(monkeypatch, change):
 
 @pytest.mark.parametrize("control", [False, True])
 def test_sound_program_correct_and_control_not(control):
-    r = run_tiny(**BRICKS, control=control)
+    """Every number compared is also bit for bit what the harness computed
+    before a configuration could name its scene and reference (one call
+    in the window, as then)."""
+    r = run_tiny(**BRICKS, control=control, seconds=0.0)
     assert r["correct"] != control, r["checks"]
+    want = TABLES["checks"]["control" if control else "program"]
+    assert {k: float(v["value"]).hex() for k, v in r["checks"].items()} \
+        == want
 
 
 def test_step_that_returns_its_state_unchanged(monkeypatch):
-    from tpusph_torch.dist import DistRunner
-
-    def frozen(self, state, tabs, dt, nsteps, aux, istep0=0, every=0,
-               callback=None, phase_timer=False):
-        self.ok_steps = nsteps
-        if callback is not None:
-            callback(state, istep0 + nsteps, aux)
-        return state, aux
-
-    monkeypatch.setattr(DistRunner, "run", frozen)
+    freeze_bricks(monkeypatch)
     r = run_tiny(**BRICKS)
     assert not r["correct"]
     assert r["checks"]["x_err"]["value"] > r["checks"]["x_err"]["limit"]

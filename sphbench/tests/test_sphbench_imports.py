@@ -1,14 +1,20 @@
-"""No JAX in a run, and nothing of the program in the reference."""
+"""No JAX in a run, and nothing of the program in the reference: every
+scene and reference module, the benchmark's and the tests' own."""
 
 import ast
 import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 from sphbench import harness
 
-REF_FILES = sorted((harness.HERE / "reference").glob("*.py")) + [
-    harness.HERE / "pairs.py"]
+ROOTS = (harness.HERE, harness.HERE / "tests")
+REF_FILES = sorted(p for r in ROOTS for p in (r / "reference").glob("*.py")
+                   if p.name != "__init__.py") + [harness.HERE / "pairs.py"]
+SCENE_FILES = sorted(p for r in ROOTS for p in (r / "scenes").glob("*.py")
+                     if p.name != "__init__.py")
 FORBIDDEN = {"jax", "jaxlib", "flax", "tpusph", "tpusph_torch"}
 
 
@@ -23,18 +29,35 @@ def _imports(path: Path) -> set:
     return out
 
 
-def test_reference_imports_nothing_of_the_program():
-    for path in REF_FILES:
-        assert not (_imports(path) & FORBIDDEN), path
+@pytest.mark.parametrize("path", REF_FILES, ids=lambda p: p.name)
+def test_reference_imports_nothing_of_the_program(path):
+    assert not (_imports(path) & FORBIDDEN), path
+
+
+@pytest.mark.parametrize("path", SCENE_FILES, ids=lambda p: p.name)
+def test_scene_imports_no_jax(path):
+    """A scene builds the program's simulation (``tpusph_torch``), and
+    nothing of JAX."""
+    assert not (_imports(path) & (FORBIDDEN - {"tpusph_torch"})), path
 
 
 def test_reference_loads_nothing_of_the_program():
-    code = ("import sys; import sphbench.reference.sph, sphbench.pairs; "
-            "print(sorted({m.split('.')[0] for m in sys.modules}))")
+    """Every reference module, loaded as the harness loads it."""
+    code = ("import sys\n"
+            "from sphbench import harness\n"
+            "n = 0\n"
+            "for root in (harness.HERE, harness.HERE / 'tests'):\n"
+            "    for p in (root / 'reference').glob('[!_]*.py'):\n"
+            "        n += bool(harness.load_part('reference', p.stem, root))\n"
+            "import sphbench.pairs\n"
+            "print(n, sorted({m.split('.')[0] for m in sys.modules}))")
     out = subprocess.run([sys.executable, "-c", code], check=True,
                          capture_output=True, text=True,
                          cwd=harness.ROOT).stdout
-    assert not (set(eval(out)) & FORBIDDEN)
+    n, loaded = out.split(" ", 1)
+    assert int(n) == len(REF_FILES) - 1     # all but pairs.py
+    assert "torch" in eval(loaded)
+    assert not (set(eval(loaded)) & FORBIDDEN)
 
 
 def test_a_run_loads_no_jax():

@@ -9,25 +9,36 @@ import torch
 from sphbench import pairs
 
 
-def brute(x, length, cut):
+def brute(x, length, cut, periodic=(True,) * 3):
     dx = x[:, None, :] - x[None, :, :]
-    dx -= length * np.round(dx / length)
+    dx -= np.where(periodic, length * np.round(dx / length), 0.0)
     rsq = (dx * dx).sum(-1)
     np.fill_diagonal(rsq, np.inf)
     return rsq < cut * cut
 
 
-@pytest.mark.parametrize("length,cut,n", [
-    ((12.0, 12.0, 12.0), 3.0, 600),     # four cells an axis
-    ((6.5, 9.0, 13.0), 3.0, 400),       # two, three and four cells
-    ((16.0, 16.0, 16.0), 3.0, 2000),
+PERIODIC = (True, True, True)
+
+
+@pytest.mark.parametrize("length,cut,n,lo,periodic", [
+    ((12.0, 12.0, 12.0), 3.0, 600, 0.0, PERIODIC),   # four cells an axis
+    ((6.5, 9.0, 13.0), 3.0, 400, 0.0, PERIODIC),     # two, three, four cells
+    ((16.0, 16.0, 16.0), 3.0, 2000, 0.0, PERIODIC),
+    # boundary p p f: a 2:1:1 box from a lower corner off the origin
+    ((24.0, 12.0, 12.0), 3.0, 1500, (0.0, 0.0, -2.0), (True, True, False)),
+    # non-periodic axes of one and two cells, and one of a single cutoff
+    ((13.0, 5.0, 3.5), 3.0, 500, (-1.0, 2.0, 0.5), (True, False, False)),
+    ((3.0, 7.0, 12.0), 3.0, 400, 0.0, (False, False, False)),
 ])
-def test_pair_search_equals_brute_force(length, cut, n):
+def test_pair_search_equals_brute_force(length, cut, n, lo, periodic):
     rng = np.random.default_rng(5)
     L = np.array(length)
-    x = rng.uniform(0, 1, (n, 3)) * L
-    want = brute(x, L, cut)
-    pl = pairs.PairList(torch.tensor(x), torch.tensor(L), cut)
+    x = np.asarray(lo) + rng.uniform(0, 1, (n, 3)) * L
+    # rows past a non-periodic face bin into the face's cell
+    x[:5] += np.where(periodic, 0.0, 0.4 * cut)
+    x[5:10] -= np.where(periodic, 0.0, 1.3 * cut)
+    want = brute(x, L, cut, periodic)
+    pl = pairs.PairList(torch.tensor(x), torch.tensor(L), cut, lo, periodic)
     got = np.zeros_like(want)
     got[pl.i.numpy(), pl.j.numpy()] = True
     assert len(pl) == int(want.sum())
